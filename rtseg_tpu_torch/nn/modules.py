@@ -1,0 +1,181 @@
+"""Module vocabulary for the port's models (counterpart of
+rtseg_tpu/nn/modules.py).
+
+Modules run on NCHW tensors (a permuted NHWC input is already a
+channels_last NCHW tensor). Attribute names are the Flax scope names of
+the JAX package (`Conv_0.conv`, `BatchNorm_0.bn`, `Activation_0.prelu`),
+so the weight converter (utils/convert.py) is a mechanical path map.
+
+Precision follows the JAX package: a conv casts its float32 weights to the
+activation type for each call (bf16 activations run bf16 convs with float32
+accumulation), and BatchNorm keeps float32 parameters and statistics,
+normalizing in float32 and returning the activation type.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+Size2 = Union[int, Tuple[int, int]]
+
+
+def _pair(v: Size2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+# ------------------------------------------------------------------ activation
+
+class PReLU(nn.Module):
+    """One learned negative slope (init 0.25), cast to the input type."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25, device=device))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+def _glu(x):
+    a, b = torch.chunk(x, 2, dim=1)
+    return a * torch.sigmoid(b)
+
+
+# 16-entry hub mirroring rtseg_tpu/nn/modules.py ACTIVATIONS; the channel
+# axis of NCHW is dim 1
+ACTIVATIONS: dict = {
+    'relu': F.relu,
+    'relu6': lambda x: torch.clamp(x, 0, 6),
+    'leakyrelu': lambda x: F.leaky_relu(x, 0.01),
+    'prelu': 'prelu',            # parameterized; handled in Activation
+    'celu': F.celu,
+    'elu': F.elu,
+    'hardswish': F.hardswish,
+    'hardtanh': lambda x: torch.clamp(x, -1, 1),
+    'gelu': lambda x: F.gelu(x, approximate='none'),
+    'glu': _glu,
+    'selu': F.selu,
+    'silu': F.silu,
+    'sigmoid': torch.sigmoid,
+    'softmax': lambda x: torch.softmax(x, dim=1),
+    'tanh': torch.tanh,
+    'none': lambda x: x,
+}
+
+
+class Activation(nn.Module):
+    """Name-dispatched activation."""
+
+    def __init__(self, act_type: str = 'relu', device=None):
+        super().__init__()
+        act = act_type.lower()
+        if act not in ACTIVATIONS:
+            raise NotImplementedError(f'Unsupported activation type: {act}')
+        self.act = act
+        if act == 'prelu':
+            self.prelu = PReLU(device)
+
+    def forward(self, x):
+        if self.act == 'prelu':
+            return self.prelu(x)
+        return ACTIVATIONS[self.act](x)
+
+
+# ------------------------------------------------------------------------- BN
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d, eps 1e-5. Flax momentum 0.9 (ema = 0.9*ema + 0.1*new) is
+    torch momentum 0.1. Eval uses the running statistics."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1,
+                                 device=device)
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+# ------------------------------------------------------------------ conv cores
+
+class Conv(nn.Module):
+    """Conv2d with torch-style symmetric padding (k-1)//2*d, groups and
+    dilation; float32 weights cast to the input type per call."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Size2 = 3, stride: Size2 = 1,
+                 dilation: Size2 = 1, groups: int = 1,
+                 use_bias: bool = False, padding: Optional[Size2] = None,
+                 device=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        dh, dw = _pair(dilation)
+        if padding is None:
+            padding = ((kh - 1) // 2 * dh, (kw - 1) // 2 * dw)
+        self.conv = nn.Conv2d(in_channels, out_channels, (kh, kw),
+                              stride=_pair(stride), padding=_pair(padding),
+                              dilation=(dh, dw), groups=groups,
+                              bias=use_bias, device=device)
+
+    def forward(self, x):
+        c = self.conv
+        bias = None if c.bias is None else c.bias.to(x.dtype)
+        return F.conv2d(x, c.weight.to(x.dtype), bias, c.stride, c.padding,
+                        c.dilation, c.groups)
+
+
+class ConvBNAct(nn.Module):
+    """Conv -> BN -> Activation."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Size2 = 3, stride: Size2 = 1,
+                 dilation: Size2 = 1, groups: int = 1, bias: bool = False,
+                 act_type: str = 'relu', device=None):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, out_channels, kernel_size, stride,
+                           dilation, groups, bias, device=device)
+        self.BatchNorm_0 = BatchNorm(out_channels, device)
+        self.Activation_0 = Activation(act_type, device)
+
+    def forward(self, x):
+        return self.Activation_0(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class DWConvBNAct(ConvBNAct):
+    """Depth-wise conv -> BN -> act: groups = input channels; the output may
+    be a multiple of them (the depthwise multiplier)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Size2 = 3, stride: Size2 = 1,
+                 dilation: Size2 = 1, act_type: str = 'relu', device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         dilation, groups=in_channels, bias=False,
+                         act_type=act_type, device=device)
+
+
+class PWConvBNAct(ConvBNAct):
+    """Point-wise conv -> BN -> act (bias on by default)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 act_type: str = 'relu', bias: bool = True, device=None):
+        super().__init__(in_channels, out_channels, 1, bias=bias,
+                         act_type=act_type, device=device)
+
+
+class SegHead(nn.Module):
+    """3x3 ConvBNAct -> bias-free 1x1 conv to classes."""
+
+    def __init__(self, in_channels: int, num_class: int,
+                 act_type: str = 'relu', hid_channels: int = 128,
+                 device=None):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(in_channels, hid_channels, 3,
+                                     act_type=act_type, device=device)
+        self.Conv_0 = Conv(hid_channels, num_class, 1, device=device)
+
+    def forward(self, x):
+        return self.Conv_0(self.ConvBNAct_0(x))

@@ -1,0 +1,62 @@
+"""The pools BiSeNetv2 uses (the counterpart of rtseg_tpu/ops/pool.py).
+
+Public functions take NHWC tensors, like the JAX package; the `_nchw`
+forms are what the model calls.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+Size2 = Union[int, Tuple[int, int]]
+
+
+def _pair(v: Size2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def max_pool_nchw(x: torch.Tensor, window: Size2,
+                  stride: Optional[Size2] = None, padding: Size2 = 0
+                  ) -> torch.Tensor:
+    # F.max_pool2d pads with -inf, as lax.reduce_window does here
+    return F.max_pool2d(x, _pair(window),
+                        _pair(stride if stride is not None else window),
+                        _pair(padding))
+
+
+def avg_pool_nchw(x: torch.Tensor, window: Size2,
+                  stride: Optional[Size2] = None, padding: Size2 = 0,
+                  count_include_pad: bool = True) -> torch.Tensor:
+    # summed in float32 and cast back, as the JAX package does
+    y = F.avg_pool2d(x.float(), _pair(window),
+                     _pair(stride if stride is not None else window),
+                     _pair(padding), count_include_pad=count_include_pad)
+    return y.to(x.dtype)
+
+
+def global_avg_pool_nchw(x: torch.Tensor, keepdims: bool = True
+                         ) -> torch.Tensor:
+    return x.mean(dim=(2, 3), keepdim=keepdims)
+
+
+def _nhwc(fn, x, *args, **kwargs):
+    return fn(x.permute(0, 3, 1, 2), *args, **kwargs).permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: Size2, stride: Optional[Size2] = None,
+             padding: Size2 = 0) -> torch.Tensor:
+    return _nhwc(max_pool_nchw, x, window, stride, padding)
+
+
+def avg_pool(x: torch.Tensor, window: Size2, stride: Optional[Size2] = None,
+             padding: Size2 = 0, count_include_pad: bool = True
+             ) -> torch.Tensor:
+    return _nhwc(avg_pool_nchw, x, window, stride, padding,
+                 count_include_pad)
+
+
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    return x.mean(dim=(1, 2), keepdim=keepdims)
