@@ -4,17 +4,22 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a)
+  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a);
+     count the SASS instructions of K1's row loop (cuobjdump)
   2. K1 (fused upsample+argmax) against its plain version at the slice's
-     shapes, [16,128,256,19] -> 1024x2048, in float32 and bfloat16, plus
-     integer logits, all-equal logits, the identity size and W=2050
+     shapes, [16,128,256,19] -> 1024x2048, in float32 and bfloat16 (and
+     bf16 logits against the float32 plain version), plus integer logits,
+     all-equal logits, the identity size, and in float32 and bfloat16
+     W=2050, align_corners=False, a downsample, an odd shape, C=1, C=150
   3. K2 (confusion matrix) against its plain version: bit-equal
   4. the slice: SegTrainer(cfg).validate() of BiSeNetv2 (aux heads, 19
      classes, bf16) on synthetic 1024x2048 data, bs16, 3 batches, with the
      kernels' launch counts read around the run; build_predict_step once;
      and the eval step on the card against the CPU path on a small input
   5. times (CUDA events after warm-up) of each kernel, its plain version
-     and a one-call library yardstick, beside the bound; the slice's imgs/s
+     and a one-call library yardstick, beside the bound and the share of
+     it reached; K1 at several class counts (each checked); the slice's
+     imgs/s; K1's row loop at the issue rate, from its SASS (phase 1)
   6. the {"kernels": [...]} line; 7. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -24,9 +29,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -81,9 +88,84 @@ def phase_card_and_build():
     logs = cuda_build.build(force=True, ptxas_verbose=True)
     say(f'build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s')
     for name, log in logs.items():
+        regs, spills, fn, mine = [], 0, '', None
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                say(f'  ptxas {name}: {line.strip()}')
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            fn = entry.group(1) if entry else fn
+            spills += sum(map(int, re.findall(r'(\d+) bytes spill stores',
+                                              line)))
+            used = re.search(r'Used (\d+) registers', line)
+            if used:
+                regs.append(int(used.group(1)))
+                # K1's instance for the slice: bf16 logits, C classes
+                if 'bfloat16' in fn and f'Li{C}E' in fn:
+                    mine = regs[-1]
+        say(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} '
+            f'registers, {spills} bytes of spill stores'
+            + (f'; bf16 C={C}: {mine} registers' if mine else ''))
+    return _sass_row_loop(cuda_build)
+
+
+def _sass_row_loop(cuda_build):
+    """The SASS of K1's row loop in its bf16 C-class instance, read with
+    cuobjdump from the built library: instructions a row and by opcode.
+    The row loop is the smallest loop (a backward branch) that holds the
+    argmax's FMNMX; a row is one STG. Returns None, saying why, where the
+    SASS cannot be read."""
+    tool = Path(cuda_build._nvcc()).with_name('cuobjdump')
+    dump = subprocess.run([str(tool), '-sass',
+                           str(cuda_build.library_path('fused_head'))],
+                          capture_output=True, text=True, timeout=120)
+    body = None
+    for part in re.split(r'\n\s*Function : ', dump.stdout)[1:]:
+        name = part.split(None, 1)[0]
+        if 'head_argmax_kernel' in name and 'bfloat16' in name and \
+                f'Li{C}E' in name:
+            body = part
+    if dump.returncode != 0 or body is None:
+        say(f'SASS: not read (cuobjdump exit {dump.returncode}, '
+            f'instance found: {body is not None}) {dump.stderr[-300:]}')
+        return None
+    ins, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r'\s*(\.L_x_\d+):', line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r'\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?'
+                     r'([A-Z][A-Z0-9_.]*)([^;]*);', line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        labels.update((lb, addr) for lb in pending)
+        pending = []
+        op = m.group(2).split('.')[0]
+        target = None
+        if op == 'BRA':
+            t = re.search(r'0x([0-9a-f]+)|(\.L_x_\d+)', m.group(3))
+            target = (int(t.group(1), 16) if t.group(1) else t.group(2)) \
+                if t else None
+        ins.append((addr, op, target))
+    loops = []
+    for addr, op, target in ins:
+        start = labels.get(target, target)
+        if op == 'BRA' and isinstance(start, int) and start < addr:
+            ops = [o for a, o, _ in ins if start <= a <= addr and o != 'NOP']
+            if 'FMNMX' in ops and 'STG' in ops:
+                loops.append(ops)
+    if not loops:
+        say(f'SASS: no row loop found among {len(ins)} instructions')
+        return None
+    ops = min(loops, key=len)
+    rows = ops.count('STG')
+    hist = {o: ops.count(o) / rows for o in sorted(set(ops), key=ops.count,
+                                                   reverse=True)}
+    out = {'instructions_per_row': len(ops) / rows, 'rows_per_pass': rows,
+           'by_opcode_per_row': hist}
+    say(f'SASS: K1 bf16 C={C} row loop: {len(ops) / rows:g} instructions a '
+        f'row ({rows} rows a pass): '
+        + ', '.join(f'{o} {n:g}' for o, n in hist.items()))
+    return out
 
 
 # ------------------------------------------------------------------ phase 2
@@ -97,28 +179,38 @@ def _logit_gap(x: torch.Tensor, pred: torch.Tensor) -> float:
     return float((best - got).max())
 
 
+def _rate(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got != want).float().mean())
+
+
 def phase_k1(dev):
     from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
     x = torch.randn((B, h, w, C), generator=g, device=dev)
-    for name, xin, tol in (('float32', x, 1e-4),
-                           ('bfloat16', x.to(torch.bfloat16), 8e-3)):
+    xb = x.to(torch.bfloat16)
+    for name, xin, tol in (('float32', x, 1e-4), ('bfloat16', xb, 8e-3)):
         got = resize_argmax(xin, (H, W))
         ref = _argmax_ref(xin, (H, W))
         torch.cuda.synchronize()
         check(got.shape == (B, H, W) and got.dtype == torch.int32,
               f'K1 {name}: output {tuple(got.shape)} {got.dtype}')
-        rate = float((got != ref).float().mean())
+        rate = _rate(got, ref)
         gap = _logit_gap(xin, got)
         say(f'K1 {name} random logits: mismatch {rate:.3e} (tolerance '
             f'{tol:g}), max logit gap at the chosen class {gap:.3e}')
         check(rate <= tol, f'K1 {name} mismatch {rate} > {tol}')
         out[name] = (rate, gap)
+    # the kernel computes in float32 on bf16 logits: it meets the float32
+    # limit against the plain version run on the same values in float32
+    rate = _rate(resize_argmax(xb, (H, W)), _argmax_ref(xb.float(), (H, W)))
+    say(f'K1 bfloat16 logits against the float32 plain version: mismatch '
+        f'{rate:.3e} (tolerance 1e-4)')
+    check(rate <= 1e-4, f'K1 bfloat16 vs float32 plain mismatch {rate}')
+    out['bfloat16_vs_float32'] = rate
     xi = torch.randint(-8, 8, (B, h, w, C), generator=g, device=dev
                        ).float() * 4.0
-    rate = float((resize_argmax(xi, (H, W)) != _argmax_ref(xi, (H, W))
-                  ).float().mean())
+    rate = _rate(resize_argmax(xi, (H, W)), _argmax_ref(xi, (H, W)))
     say(f'K1 integer logits: mismatch {rate:.3e} (tolerance 1e-4)')
     check(rate <= 1e-4, f'K1 integer-logit mismatch {rate}')
     zeros = torch.zeros((2, h, w, C), device=dev)
@@ -130,10 +222,27 @@ def phase_k1(dev):
           'K1 identity size differs from argmax')
     say('K1 identity size: equal to argmax')
     xs = x[:2].contiguous()
-    rate = float((resize_argmax(xs, (H, 2050)) != _argmax_ref(xs, (H, 2050))
-                  ).float().mean())
-    say(f'K1 W=2050: mismatch {rate:.3e} (tolerance 1e-4)')
-    check(rate <= 1e-4, f'K1 W=2050 mismatch {rate}')
+    for name, xin, size, corners in (
+            ('W=2050', xs, (H, 2050), True),
+            ('align_corners=False', xs, (H, W), False),
+            ('downsample [2,128,256,19]->(64,100)', xs, (64, 100), True),
+            ('odd [1,10,13,6]->(37,53)', (1, 10, 13, 6), (37, 53), True),
+            ('C=1 [2,16,32,1]->(128,256)', (2, 16, 32, 1), (128, 256), True),
+            ('C=150 [2,32,64,150]->(256,512), above the register buckets',
+             (2, 32, 64, 150), (256, 512), True)):
+        if isinstance(xin, tuple):
+            xin = torch.randn(xin, generator=g, device=dev)
+        # bf16 logits against the float32 plain version on the same values
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = xin.to(dtype)
+            got = resize_argmax(xd, size, corners)
+            rate = _rate(got, _argmax_ref(xd.float(), size, corners))
+            say(f'K1 {name} {str(dtype)[6:]}: mismatch {rate:.3e} '
+                f'(tolerance 1e-4)')
+            check(rate <= 1e-4, f'K1 {name} {dtype} mismatch {rate}')
+            if xin.shape[-1] == 1:
+                check(bool((got == 0).all()),
+                      'K1 C=1 gives a class other than 0')
     torch.cuda.synchronize()
     return out
 
@@ -255,11 +364,9 @@ def phase_slice(dev):
 
 # ------------------------------------------------------------------ phase 5
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
-                k2_err):
+                k2_err, sass):
     import torch.nn.functional as F
-    from rtseg_tpu_torch.ops.fused_head import (_argmax_ref, _device_taps,
-                                                _launch, resize_argmax,
-                                                w_interp)
+    from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
                                                     confusion_matrix_plain)
     from rtseg_tpu_torch.train.step import build_eval_step
@@ -268,24 +375,41 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
         logits = trainer.model(imgs.to(torch.bfloat16), defer_upsample=True)
     logits = logits.contiguous()
     check(tuple(logits.shape) == (B, h, w, C), f'logits {logits.shape}')
-    # K1: the wrapper (stage-1 product + kernel) is the function the path
-    # calls; stage 2 alone is the CUDA kernel
+    # K1: one kernel launch a call (the wrapper allocates the output)
     k1_ms = time_ms(lambda: resize_argmax(logits, (H, W)))
     k1_plain = time_ms(lambda: _argmax_ref(logits, (H, W)), iters=5)
     k1_lib = time_ms(lambda: F.interpolate(
         logits.permute(0, 3, 1, 2), (H, W), mode='bilinear',
         align_corners=True).argmax(1), iters=5)
-    z = w_interp(logits, W)
-    taps = _device_taps(h, H, True, logits.device)
-    out = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    k1_stage2 = time_ms(lambda: _launch(z, taps, out))
     # bytes: logits in (bf16), int32 predictions out. operations: the two
-    # taps of each interpolation (2 FMAs = 4 flops) at low height over W,
-    # then per (pixel, class) 2 FMAs and one compare
+    # taps of the W-interpolation (2 FMAs = 4 flops) at low height, then
+    # per (pixel, class) one FMA (the H-lerp) and one compare
     k1_bytes = logits.numel() * 2 + B * H * W * 4
-    k1_ops = B * h * C * W * 4 + B * H * W * C * 5
+    k1_ops = B * h * C * W * 4 + B * H * W * C * 3
     k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
-    s2_bound, _ = bound_ms(z.numel() * 2 + B * H * W * 4, B * H * W * C * 5)
+    # the formula of the earlier two-stage port (2 FMAs and a compare per
+    # pixel and class), for comparison with its rows
+    k1_bound_pr1, _ = bound_ms(k1_bytes,
+                               B * h * C * W * 4 + B * H * W * C * 5)
+    # what the time is made of: the same kernel at fewer and more classes
+    # (random bf16 logits), each output checked against the float32 plain
+    # version: the time at C=1 is the part every class count pays (bytes,
+    # block set-up), the slope the cost of a class; C=20 runs in the
+    # register bucket of 24, padded. All checks run before the timings
+    g = torch.Generator(device=dev).manual_seed(2)
+    x32 = torch.randn((B, h, w, 32), generator=g, device=dev
+                      ).to(torch.bfloat16)
+    xs = {c: x32[..., :c].contiguous() for c in (1, 8, C, 20, 24, 32)}
+    del x32
+    for c, xc in xs.items():
+        rate = _rate(resize_argmax(xc, (H, W)),
+                     _argmax_ref(xc.float(), (H, W)))
+        say(f'K1 bf16 C={c} [{B},{h},{w},{c}] -> {H}x{W}: mismatch '
+            f'{rate:.3e} against the float32 plain version (tolerance 1e-4)')
+        check(rate <= 1e-4, f'K1 bf16 C={c} mismatch {rate}')
+    by_c = {c: time_ms(lambda xc=xc: resize_argmax(xc, (H, W)))
+            for c, xc in xs.items()}
+    del xs
 
     k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, msks, C, IGNORE))
     k2_plain = time_ms(lambda: confusion_matrix_plain(preds, msks, C, IGNORE),
@@ -302,11 +426,33 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
         fwd_ms = time_ms(lambda: trainer.model(imgs.to(torch.bfloat16),
                                                defer_upsample=True), iters=5)
     step_ms = time_ms(lambda: step(imgs, msks), iters=5)
-    say(f'times (ms): K1 wrapper {k1_ms:.4f} (stage-2 kernel {k1_stage2:.4f}'
-        f', bound {s2_bound:.4f}), plain {k1_plain:.4f}, F.interpolate+'
-        f'argmax {k1_lib:.4f}, bound {k1_bound:.4f} ({k1_by})')
+    say(f'times (ms): K1 {k1_ms:.4f}, plain {k1_plain:.4f}, F.interpolate+'
+        f'argmax {k1_lib:.4f}, bound {k1_bound:.4f} ({k1_by}), '
+        f'{k1_bound / k1_ms:.1%} of the bound reached (the earlier '
+        f'formula, 5 flops a pixel and class: {k1_bound_pr1:.4f})')
+    say(f'times (ms): K1 by class count at [{B},{h},{w},C] -> {H}x{W}: '
+        + ', '.join(f'C={c} {t:.4f}' for c, t in by_c.items())
+        + f'; {(by_c[C] - by_c[8]) / (C - 8) * 1e3:.2f} us a class from C=8 '
+        f'to {C}')
+    if sass:
+        # an estimate, not a reading of the card's counters: the row loop's
+        # warp instructions at one a clock on each scheduler (4 an SM) at
+        # the card's maximum SM clock
+        mhz = float(subprocess.run(
+            ['nvidia-smi', '--query-gpu=clocks.max.sm',
+             '--format=csv,noheader,nounits'], capture_output=True,
+            text=True, timeout=60).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        issue_ms = (B * H * W / 32 * sass['instructions_per_row']
+                    / (sms * 4 * mhz * 1e6) * 1e3)
+        sass.update(issue_ms=issue_ms, sm_clock_mhz=mhz, sms=sms)
+        say(f'K1 row loop at the issue rate ({sms} SMs x 4 schedulers, '
+            f'{mhz:g} MHz max SM clock): {issue_ms:.4f} ms for the rows '
+            f'alone, {issue_ms / k1_ms:.1%} of K1\'s time (an estimate from '
+            f'the SASS count)')
     say(f'times (ms): K2 {k2_ms:.4f}, plain {k2_plain:.4f}, torch.bincount '
-        f'{k2_lib:.4f}, bound {k2_bound:.4f} ({k2_by})')
+        f'{k2_lib:.4f}, bound {k2_bound:.4f} ({k2_by}), '
+        f'{k2_bound / k2_ms:.1%} of the bound reached')
     n_batches = len(trainer.val_loader)
     say(f'slice eval step on a resident batch: {step_ms:.3f} ms = '
         f'{B / step_ms * 1e3:.2f} imgs/s (model forward {fwd_ms:.3f} ms, '
@@ -321,9 +467,11 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
          'max_abs_err': k1_err['float32'][1],
          'mismatch_float32': k1_err['float32'][0],
          'mismatch_bfloat16': k1_err['bfloat16'][0],
-         'ms': k1_ms, 'stage2_ms': k1_stage2, 'stage2_bound_ms': s2_bound,
-         'plain_ms': k1_plain, 'bound_ms': k1_bound, 'bound_by': k1_by,
-         'library_ms': k1_lib},
+         'mismatch_bfloat16_vs_float32': k1_err['bfloat16_vs_float32'],
+         'ms': k1_ms, 'plain_ms': k1_plain, 'bound_ms': k1_bound,
+         'bound_by': k1_by, 'library_ms': k1_lib,
+         'bound_ms_pr1_formula': k1_bound_pr1, 'ms_by_classes': by_c,
+         'sass_row_loop': sass},
         {'name': 'confusion_matrix_pallas', 'route': 'cuda',
          'source': 'rtseg_tpu_torch/ops/csrc/confusion_matrix.cu',
          'replaces': 'rtseg_tpu/ops/pallas_metrics.py:66',
@@ -344,10 +492,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
-    phase_card_and_build()
+    sass = phase_card_and_build()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
-    kernels = phase_times(dev, *phase_slice(dev), k1_err, k2_err)
+    kernels = phase_times(dev, *phase_slice(dev), k1_err, k2_err, sass)
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
