@@ -9,18 +9,35 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. K1 (fused upsample+argmax) against its plain version at the slice's
      shapes, [16,128,256,19] -> 1024x2048, in float32 and bfloat16 (and
      bf16 logits against the float32 plain version), plus integer logits,
-     all-equal logits, the identity size, and in float32 and bfloat16
-     W=2050, align_corners=False, a downsample, an odd shape, C=1, C=150
+     all-equal logits, the identity size, and in float32 and bfloat16 the
+     train run's validation shape [16,64,128,19] -> 512x1024, W=2050,
+     align_corners=False, a downsample, an odd shape, C=1, C=150
   3. K2 (confusion matrix) against its plain version: bit-equal
   4. the slice: SegTrainer(cfg).validate() of BiSeNetv2 (aux heads, 19
      classes, bf16) on synthetic 1024x2048 data, bs16, 3 batches, with the
      kernels' launch counts read around the run; build_predict_step once;
      and the eval step on the card against the CPU path on a small input
-  5. times (CUDA events after warm-up) of each kernel, its plain version
+  5. train: SegTrainer(cfg).run() of BiSeNetv2 (aux heads, OHEM, SGD
+     under OneCycle, EMA; 19 classes, bf16, 512x1024 crop, bs16) for 2
+     epochs of 4 steps on synthetic data, validating the EMA weights every
+     epoch and in val_best() through K1 and K2 (launch counts read around
+     the run); checkpoints written, a second trainer resumes them exactly;
+     the OHEM loss (bisection branch) on the card against the CPU on one
+     batch's bf16 logits; K1 and K2 on the EMA model's deferred logits of
+     that batch against their plain versions; 3 float32 train steps of 4
+     distinct samples on the card (deterministic cuDNN) against the CPU
+     path at 64x128, and the card's spread with its default algorithms; the
+     train step's time, its split (forward+loss, backward,
+     optimizer+EMA), the card's time by operator over two steps
+     (torch.profiler), the OHEM loss alone, the peak memory, and run()'s
+     wall time beside the loaders alone
+  6. times (CUDA events after warm-up) of each kernel, its plain version
      and a one-call library yardstick, beside the bound and the share of
      it reached; K1 at several class counts (each checked); the slice's
      imgs/s; K1's row loop at the issue rate, from its SASS (phase 1)
-  6. the {"kernels": [...]} line; 7. the {"ok": true, ...} line.
+  7. the {"kernels": [...]} line, whose launch counts are those of the
+     eval slice (phase 4) and the train run (phase 5) together;
+  8. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -30,8 +47,10 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,6 +63,7 @@ FP32_OPS_PER_S = 67e12
 
 B, h, w, C = 16, 128, 256, 19          # deferred BiSeNetv2 logits
 H, W = 1024, 2048                      # Cityscapes val shape
+TRAIN_H, TRAIN_W = 512, 1024           # Cityscapes training crop
 IGNORE = 255
 
 
@@ -82,7 +102,8 @@ def phase_card_and_build():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f'nvidia-smi failed: {smi.stderr}')
-    say(f'card: {smi.stdout.strip().splitlines()[0]}')
+    card = smi.stdout.strip().splitlines()[0]
+    say(f'card: {card}')
     from rtseg_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     logs = cuda_build.build(force=True, ptxas_verbose=True)
@@ -103,7 +124,7 @@ def phase_card_and_build():
         say(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} '
             f'registers, {spills} bytes of spill stores'
             + (f'; bf16 C={C}: {mine} registers' if mine else ''))
-    return _sass_row_loop(cuda_build)
+    return card, _sass_row_loop(cuda_build)
 
 
 def _sass_row_loop(cuda_build):
@@ -223,6 +244,9 @@ def phase_k1(dev):
     say('K1 identity size: equal to argmax')
     xs = x[:2].contiguous()
     for name, xin, size, corners in (
+            (f'train run validation [{B},{TRAIN_H // 8},{TRAIN_W // 8},{C}]'
+             f'->({TRAIN_H},{TRAIN_W})', (B, TRAIN_H // 8, TRAIN_W // 8, C),
+             (TRAIN_H, TRAIN_W), True),
             ('W=2050', xs, (H, 2050), True),
             ('align_corners=False', xs, (H, W), False),
             ('downsample [2,128,256,19]->(64,100)', xs, (64, 100), True),
@@ -286,7 +310,7 @@ def _slice_config(**kw):
     base = dict(model='bisenetv2', use_aux=True, num_class=C,
                 dataset='synthetic', crop_h=H, crop_w=W, val_bs=B,
                 synthetic_len=4 * 3 * B,          # val split: 3 batches
-                compute_dtype='bfloat16', random_seed=1)
+                compute_dtype='bfloat16', random_seed=1, load_ckpt=False)
     base.update(kw)
     return SegConfig(**base)
 
@@ -347,8 +371,8 @@ def phase_slice(dev):
 
     # the card's path (kernels, fp32) against the CPU path (plain versions,
     # which the CPU tests hold to the JAX package) on a small input
-    small = dict(crop_h=64, crop_w=128, val_bs=2, synthetic_len=8,
-                 compute_dtype='float32')
+    small = dict(crop_h=64, crop_w=128, train_bs=2, val_bs=2,
+                 synthetic_len=8, compute_dtype='float32')
     cms = {}
     for d in ('cuda', 'cpu'):
         t = SegTrainer(_slice_config(**small), device=d, variables=variables)
@@ -363,6 +387,306 @@ def phase_slice(dev):
 
 
 # ------------------------------------------------------------------ phase 5
+def _train_config(save_dir, **kw):
+    from rtseg_tpu_torch.config import SegConfig
+    base = dict(model='bisenetv2', use_aux=True, num_class=C,
+                dataset='synthetic', crop_h=TRAIN_H, crop_w=TRAIN_W,
+                train_bs=B, val_bs=B,
+                synthetic_len=4 * B,      # 4 steps an epoch, 1 val batch
+                total_epoch=2, warmup_epochs=1, lr_policy='cos_warmup',
+                optimizer_type='sgd', loss_type='ohem', use_ema=True,
+                compute_dtype='bfloat16', use_tb=False, use_obs=False,
+                save_dir=str(save_dir), random_seed=1)
+    base.update(kw)
+    return SegConfig(**base)
+
+
+def _same_weights(a, b, tol: float = 0.0, path: str = ''):
+    """(largest |a - b|, its leaf) over two Flax-shaped variable trees;
+    fails where a leaf is not within tol as np.allclose(atol=tol,
+    rtol=tol) reads it (tol 0: equal)."""
+    worst = (0.0, '')
+    for k, v in a.items():
+        name = f'{path}/{k}'
+        if isinstance(v, dict):
+            worst = max(worst, _same_weights(v, b[k], tol, name))
+            continue
+        x, y = np.asarray(v), np.asarray(b[k])
+        check(np.allclose(x, y, atol=tol, rtol=tol),
+              f'{name} differs by {np.abs(x - y).max()} (tolerance {tol})')
+        worst = max(worst, (float(np.abs(x - y).max()), name))
+    return worst
+
+
+def _train_card_vs_cpu(variables):
+    """3 float32 train steps at 64x128, bs 4 (the first epoch of the
+    train loader: 12 distinct synthetic samples), on the card (TF32 off)
+    and on the CPU path from the same weights, with cuDNN's deterministic
+    algorithms. Rounding differences grow most in the third step, the
+    first at the peak LR, so a card run with the default algorithms,
+    which reduce in no fixed order, can move by several 1e-4 from one run
+    to the next; that run is made too, and its distance from
+    the deterministic one printed, not checked."""
+    from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.utils.convert import to_jax_variables
+    small = dict(crop_h=64, crop_w=128, train_bs=4, val_bs=4,
+                 synthetic_len=12, compute_dtype='float32', save_ckpt=False,
+                 load_ckpt=False)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    for d in ('cuda', 'cpu', 'cuda default'):
+        torch.backends.cudnn.deterministic = d != 'cuda default'
+        dev = d.split()[0]
+        t = SegTrainer(_train_config('unused', **small), device=dev,
+                       variables=variables)
+        t.train_loader.set_epoch(0)
+        losses = []
+        for imgs, msks in t.train_loader:
+            _, m = t.train_step(t.state, imgs.to(dev), msks.to(dev))
+            losses.append(float(m['loss']))
+        check(len(losses) == 3, f'{len(losses)} small train steps')
+        runs[d] = (losses, to_jax_variables(t.model),
+                   to_jax_variables(t.ema_model))
+    torch.backends.cudnn.deterministic = deterministic
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs['cuda'][0],
+                                                   runs['cpu'][0]))
+    check(rel <= 1e-3, f'card vs CPU train losses differ by {rel}')
+    dw = _same_weights(runs['cuda'][1], runs['cpu'][1], 1e-3)
+    de = _same_weights(runs['cuda'][2], runs['cpu'][2], 1e-3)
+    spread = _same_weights(runs['cuda default'][1], runs['cuda'][1],
+                           math.inf)
+    say(f'small fp32 train, card (deterministic cuDNN) vs CPU, 3 steps of '
+        f'4 distinct samples: losses {runs["cuda"][0]} vs '
+        f'{runs["cpu"][0]} (largest relative difference {rel:.2e}, '
+        f'tolerance 1e-3); params+BN statistics differ by at most '
+        f'{dw[0]:.2e} ({dw[1]}), EMA by {de[0]:.2e} ({de[1]}); tolerance '
+        f'1e-3 absolute and relative. The card with cuDNN\'s default '
+        f'algorithms: params+BN statistics {spread[0]:.2e} ({spread[1]}) '
+        f'from its deterministic run (not checked)')
+    return rel, max(dw, de)[0], spread[0]
+
+
+def _profile_step(step, state, imgs, msks, n: int = 2):
+    """torch.profiler over n train steps: the card's time by operator
+    (self time of the kernels each launched), the 12 largest, and the
+    share of the steps' wall that the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, imgs, msks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [(e.self_device_time_total / 1e3 / n, e.count // n, e.key)
+           for e in prof.key_averages()
+           if e.self_device_time_total > 0 and e.device_type.name == 'CPU']
+    total = sum(t for t, _, _ in ops)
+    check(total > 0, 'the profiler saw no device time')
+    ops.sort(reverse=True)
+    say(f'train step profile ({n} steps, torch.profiler): card busy '
+        f'{total:.3f} ms a step of {wall_ms / n:.3f} ms wall; by operator '
+        f'(self device ms a step, calls a step): '
+        + '; '.join(f'{k} {t:.3f} ({c})' for t, c, k in ops[:12]))
+    return {'device_ms': total, 'wall_ms': wall_ms / n,
+            'top': [[k, t, c] for t, c, k in ops[:12]]}
+
+
+def phase_train(dev, card):
+    """SegTrainer(cfg).run() on the card, its checks, and its times."""
+    from rtseg_tpu_torch.losses import ohem_cross_entropy
+    from rtseg_tpu_torch.losses import losses as loss_mod
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
+                                                    confusion_matrix_plain)
+    from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.train.optim import set_hparams
+    from rtseg_tpu_torch.train.step import _make_forward_loss
+    from rtseg_tpu_torch.train.state import ema_update
+    from rtseg_tpu_torch.utils.convert import (random_jax_variables,
+                                               to_jax_variables)
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        cfg = _train_config(tmp)
+        variables = random_jax_variables(get_model(cfg), seed=1)
+        trainer = SegTrainer(cfg, variables=variables)
+        n_steps = cfg.total_epoch * len(trainer.train_loader)
+        n_val = len(trainer.val_loader)
+        check(n_val >= 1, f'{n_val} val batches')
+        resize_argmax.launches = 0
+        confusion_matrix_pallas.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {'resize_argmax': resize_argmax.launches,
+                    'confusion_matrix': confusion_matrix_pallas.launches}
+        losses = trainer.epoch_losses
+        say(f'train: BiSeNetv2 bf16, aux heads + OHEM, SGD cos_warmup, EMA; '
+            f'{cfg.total_epoch} epochs x {len(trainer.train_loader)} steps of '
+            f'{B}x{TRAIN_H}x{TRAIN_W}; run() {wall:.3f} s; epoch losses '
+            f'{losses}; step {trainer.state.step}; val_best mIoU '
+            f'{miou:.6f}; launches {launches} for {3 * n_val} val batches')
+        check(len(losses) == cfg.total_epoch
+              and all(math.isfinite(x) for x in losses),
+              f'epoch losses {losses}')
+        check(trainer.state.step == n_steps == 8,
+              f'step {trainer.state.step} != {n_steps}')
+        check(math.isfinite(miou), 'val_best mIoU is not finite')
+        # two epochs' validations and val_best's, one batch each
+        check(all(v == 3 * n_val for v in launches.values()),
+              f'launch counts {launches} != {3 * n_val} val batches')
+        for name in ('best.ckpt', 'last.ckpt'):
+            check((Path(tmp) / name / 'meta.json').exists()
+                  and (Path(tmp) / name / 'state.pt').exists(),
+                  f'{name} not written')
+
+        resumed = SegTrainer(_train_config(tmp))
+        check(resumed.cur_epoch == cfg.total_epoch
+              and resumed.state.step == trainer.state.step,
+              f'resumed at epoch {resumed.cur_epoch}, step '
+              f'{resumed.state.step}')
+        _same_weights(to_jax_variables(resumed.model),
+                      to_jax_variables(trainer.model))
+        # trainer's EMA model holds best's weights since val_best();
+        # last.ckpt holds the EMA of the last step
+        last = torch.load(Path(tmp) / 'last.ckpt' / 'state.pt',
+                          weights_only=True)
+        _same_weights(to_jax_variables(resumed.ema_model),
+                      last['ema_variables'])
+        bufs = {n: trainer.state.optimizer.state[p]['momentum_buffer']
+                for n, p in trainer.model.named_parameters()}
+        for n, p in resumed.model.named_parameters():
+            check(torch.equal(resumed.state.optimizer.state[p]
+                              ['momentum_buffer'], bufs[n]),
+                  f'momentum of {n} not restored')
+        say(f'resume: epoch {resumed.cur_epoch}, step {resumed.state.step}, '
+            f'params, BN statistics, EMA and momentum restored exactly')
+        del resumed
+        # the same run again in this process, from a fresh trainer: the
+        # first run paid for loading the backward's kernels and choosing
+        # the convolutions' algorithms
+        shutil.rmtree(tmp)
+        again = SegTrainer(_train_config(tmp), variables=variables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again.run()
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        say(f'train run() again: epoch losses {again.epoch_losses}')
+        del again
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the OHEM loss on the card's bf16 logits of one train batch (above
+    # 2^18 pixels: the bisection branch) against the CPU on the same values
+    trainer.train_loader.set_epoch(0)
+    imgs, msks = next(iter(trainer.train_loader))
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    check(msks.numel() > loss_mod._OHEM_SORT_LIMIT, 'not the bisection')
+    with torch.inference_mode():
+        logits = trainer.ema_model(imgs.to(torch.bfloat16))
+        card_loss = float(ohem_cross_entropy(logits, msks))
+        cpu_loss = float(ohem_cross_entropy(logits.cpu(), msks.cpu()))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    say(f'OHEM on bf16 logits {tuple(logits.shape)} ({msks.numel()} px, '
+        f'bisection): card {card_loss:.7f}, CPU {cpu_loss:.7f}, relative '
+        f'difference {rel:.2e} (tolerance 1e-4)')
+    check(rel <= 1e-4, f'OHEM card vs CPU {rel}')
+    ohem_check = rel
+
+    # K1 and K2 at the shapes of the run's validation, on the EMA model's
+    # deferred bf16 logits of that batch, against their plain versions
+    with torch.inference_mode():
+        low = trainer.ema_model(imgs.to(torch.bfloat16),
+                                defer_upsample=True).contiguous()
+    check(tuple(low.shape) == (B, TRAIN_H // 8, TRAIN_W // 8, C),
+          f'deferred logits {tuple(low.shape)}')
+    preds = resize_argmax(low, (TRAIN_H, TRAIN_W))
+    k1_rate = _rate(preds, _argmax_ref(low.float(), (TRAIN_H, TRAIN_W)))
+    cm = confusion_matrix_pallas(preds, msks, C, IGNORE)
+    k2_equal = torch.equal(cm, confusion_matrix_plain(preds, msks, C, IGNORE))
+    say(f'K1 on the EMA model\'s bf16 logits {tuple(low.shape)} -> '
+        f'{TRAIN_H}x{TRAIN_W}: mismatch {k1_rate:.3e} against the float32 '
+        f'plain version (tolerance 1e-4); K2 on those predictions and the '
+        f'batch\'s labels: bit-equal {k2_equal}, total {int(cm.sum())}')
+    check(k1_rate <= 1e-4, f'K1 train-run shape mismatch {k1_rate}')
+    check(k2_equal, 'K2 differs from its plain version at the train shape')
+    del low, preds
+
+    train_rel, train_abs, train_spread = _train_card_vs_cpu(variables)
+
+    # times on a resident batch
+    st, step = trainer.state, trainer.train_step
+    forward_loss = _make_forward_loss(cfg)
+    step_ms = time_ms(lambda: step(st, imgs, msks), iters=5, warmup=2)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(st, imgs, msks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = np.zeros(3)
+    iters = 5
+    for i in range(iters + 2):
+        st.model.train()
+        set_hparams(st.optimizer, 1e-3, 0.9)
+        st.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = forward_loss(st.model, imgs, msks)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        st.optimizer.step()
+        ema_update(st.model, st.ema_model, 0.5)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            parts += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+    parts /= iters
+    st.model.eval()
+    profile = _profile_step(step, st, imgs, msks)
+    ohem_ms = time_ms(lambda: ohem_cross_entropy(logits, msks), iters=10)
+    eval_ms = time_ms(lambda: trainer.eval_step(imgs, msks), iters=5)
+    # the host's data alone: the loaders as run() used them
+    t0 = time.perf_counter()
+    for epoch in range(cfg.total_epoch):
+        trainer.train_loader.set_epoch(epoch)
+        for _ in trainer.train_loader:
+            pass
+    for _ in range(3):
+        for _ in trainer.val_loader:
+            pass
+    data_s = time.perf_counter() - t0
+    busy = (n_steps * step_ms + 3 * n_val * eval_ms) / (wall * 1e3)
+    say(f'train times ({card}): step on a resident batch {step_ms:.3f} ms '
+        f'= {B / step_ms * 1e3:.2f} imgs/s; split forward+loss '
+        f'{parts[0]:.3f} ms, backward {parts[1]:.3f} ms, optimizer+EMA '
+        f'{parts[2]:.3f} ms; OHEM loss alone {ohem_ms:.3f} ms; eval step '
+        f'at {TRAIN_H}x{TRAIN_W} {eval_ms:.3f} ms; peak memory of a step '
+        f'{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated before '
+        f'it)')
+    say(f'train run() {wall:.3f} s with host data (the same run again in '
+        f'this process {warm_wall:.3f} s); the loaders alone (same batches, '
+        f'{cfg.base_workers} threads) {data_s:.3f} s; card busy about '
+        f'{busy:.3f} of the first run\'s wall time and '
+        f'{busy * wall / warm_wall:.3f} of the second\'s ({n_steps} steps x '
+        f'step time + {3 * n_val} val batches x eval step time, over the '
+        f'wall)')
+    return launches, {'step_ms': step_ms, 'parts_ms': parts.tolist(),
+                      'ohem_ms': ohem_ms, 'peak_bytes': peak, 'wall_s': wall,
+                      'warm_wall_s': warm_wall, 'profile': profile,
+                      'ohem_card_vs_cpu': ohem_check,
+                      'card_vs_cpu_loss': train_rel,
+                      'card_vs_cpu_weights': train_abs,
+                      'card_default_vs_deterministic': train_spread}
+
+
+# ------------------------------------------------------------------ phase 6
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                 k2_err, sass):
     import torch.nn.functional as F
@@ -492,10 +816,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
-    sass = phase_card_and_build()
+    card, sass = phase_card_and_build()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
-    kernels = phase_times(dev, *phase_slice(dev), k1_err, k2_err, sass)
+    trainer, imgs, msks, preds, launches, wall = phase_slice(dev)
+    train_launches, train = phase_train(dev, card)
+    launches = {k: v + train_launches[k] for k, v in launches.items()}
+    kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
+                          k1_err, k2_err, sass)
+    say(json.dumps({'train': train}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 The port mirrors the JAX package path for path (rtseg_tpu/X/y.py ->
 rtseg_tpu_torch/X/y.py) and imports nothing of it. Ported so far: BiSeNetv2
-evaluation (config, ops, nn, models, utils, data, train), with the two TPU
-kernels of that path written in CUDA C++ (ops/csrc/).
+training and evaluation on synthetic data (config, ops, nn, models, losses,
+utils, data, train), with the two TPU kernels of that path written in CUDA
+C++ (ops/csrc/).
 """

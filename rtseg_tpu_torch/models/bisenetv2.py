@@ -6,10 +6,11 @@ aggregation with sigmoid gates, SegHead and the final align-corners
 upsample. Submodules carry the Flax scope names of the JAX model, so
 utils/convert.py maps weights path for path.
 
-Eval only in this package: the aux heads `seg_head2..5` exist as
-parameters when `use_aux` (they carry the checkpoint's weights) but are not
-computed, as in the JAX model's eval forward. The TPU-only layout levers
-(`pack_fullres`, `s2d_stem`, `detail_remat`, `hires_remat`) are refused.
+With `use_aux`, the training forward (`model.train()`) also returns the
+logits of the four aux heads `seg_head2..5` (1/4, 1/8, 1/16, 1/32 of the
+input), as the JAX model does with `train=True`; in eval they are not
+computed. The TPU-only layout levers (`pack_fullres`, `s2d_stem`,
+`detail_remat`, `hires_remat`) are refused.
 """
 
 from __future__ import annotations
@@ -130,6 +131,7 @@ class SemanticBranch(nn.Module):
                  use_aux: bool = False, device=None):
         super().__init__()
         a = act_type
+        self.use_aux = use_aux
         self.StemBlock_0 = StemBlock(in_channels, 16, a, device=device)
         if use_aux:
             self.seg_head2 = SegHead(16, num_class, a, device=device)
@@ -145,10 +147,15 @@ class SemanticBranch(nn.Module):
             c_in, out_channels, a, device=device)
 
     def forward(self, x):
+        """(features, aux logits): the aux heads run only in training."""
+        aux_on = self.training and self.use_aux
         x = self.StemBlock_0(x)                                  # 1/4
+        aux = [self.seg_head2(x)] if aux_on else []
         for i in range(len(self.GE_SPECS)):                      # to 1/32
             x = getattr(self, f'GatherExpansionLayer_{i}')(x)
-        return self.ContextEmbeddingBlock_0(x)
+            if aux_on and i in self.AUX_AFTER:
+                aux.append(getattr(self, self.AUX_AFTER[i])(x))
+        return self.ContextEmbeddingBlock_0(x), aux
 
 
 class BilateralGuidedAggregationLayer(nn.Module):
@@ -182,7 +189,9 @@ class BilateralGuidedAggregationLayer(nn.Module):
 class BiSeNetv2(nn.Module):
     """Takes NHWC images [B, H, W, 3] and returns NHWC class logits:
     [B, H, W, C], or the low-resolution [B, H/8, W/8, C] with
-    `defer_upsample=True` (for the fused head, ops/fused_head.py)."""
+    `defer_upsample=True` (for the fused head, ops/fused_head.py). In
+    training with `use_aux` it returns (logits, (aux2, aux3, aux4, aux5)),
+    each aux NHWC at its head's resolution."""
 
     def __init__(self, num_class: int = 1, act_type: str = 'relu',
                  use_aux: bool = True, detail_remat: bool = False,
@@ -206,17 +215,14 @@ class BiSeNetv2(nn.Module):
                                             device=device)
         self.SegHead_0 = SegHead(128, num_class, act_type, device=device)
 
-    def forward(self, x: torch.Tensor, defer_upsample: bool = False
-                ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                'the PyTorch port of BiSeNetv2 runs eval only; call .eval() '
-                '(training is a later slice, see ROADMAP.md)')
+    def forward(self, x: torch.Tensor, defer_upsample: bool = False):
         size = x.shape[1:3]
         x = x.permute(0, 3, 1, 2)          # NHWC -> channels_last NCHW
         x_d = self.DetailBranch_0(x)
-        x_s = self.SemanticBranch_0(x)
+        x_s, aux = self.SemanticBranch_0(x)
         x = self.BilateralGuidedAggregationLayer_0(x_d, x_s)
         x = self.SegHead_0(x)
-        x = final_upsample(x, size, defer=defer_upsample)
-        return x.permute(0, 2, 3, 1)
+        x = final_upsample(x, size, defer=defer_upsample).permute(0, 2, 3, 1)
+        if aux:
+            return x, tuple(a.permute(0, 2, 3, 1) for a in aux)
+        return x

@@ -87,9 +87,35 @@ class Activation(nn.Module):
 
 # ------------------------------------------------------------------------- BN
 
+def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, running_mean: torch.Tensor,
+                     running_var: torch.Tensor, eps: float = 1e-5,
+                     momentum: float = 0.9) -> torch.Tensor:
+    """Train-mode BatchNorm over NCHW `x`, as Flax computes it: float32
+    batch statistics E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased
+    variance), which both normalize `x` and update the running statistics
+    in place, ra = momentum * ra + (1 - momentum) * batch. Returns the
+    input's type.
+
+    nn.BatchNorm2d would update running_var with the unbiased variance
+    (n / (n - 1) larger), which at the 1/32-resolution aux heads of a small
+    batch (a few values a channel) moves the statistics by tens of
+    percent."""
+    xf = x.float()
+    dims = (0, 2, 3)
+    mean = xf.mean(dims)
+    var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        running_mean.mul_(momentum).add_(mean.detach() * (1.0 - momentum))
+        running_var.mul_(momentum).add_(var.detach() * (1.0 - momentum))
+    mul = torch.rsqrt(var + eps) * weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    return y.to(x.dtype)
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm2d, eps 1e-5. Flax momentum 0.9 (ema = 0.9*ema + 0.1*new) is
-    torch momentum 0.1. Eval uses the running statistics."""
+    """BatchNorm2d, eps 1e-5, Flax momentum 0.9 (ema = 0.9*ema + 0.1*new).
+    Eval uses the running statistics; training runs `batch_norm_train`."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -97,7 +123,11 @@ class BatchNorm(nn.Module):
                                  device=device)
 
     def forward(self, x):
-        return self.bn(x)
+        if not self.training:
+            return self.bn(x)
+        bn = self.bn
+        return batch_norm_train(x, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps)
 
 
 # ------------------------------------------------------------------ conv cores

@@ -30,10 +30,16 @@ def max_pool_nchw(x: torch.Tensor, window: Size2,
 def avg_pool_nchw(x: torch.Tensor, window: Size2,
                   stride: Optional[Size2] = None, padding: Size2 = 0,
                   count_include_pad: bool = True) -> torch.Tensor:
-    # summed in float32 and cast back, as the JAX package does
-    y = F.avg_pool2d(x.float(), _pair(window),
+    # summed in float32 and cast back, as the JAX package does. Pooled in
+    # the contiguous NCHW layout and handed back in the input's: for a
+    # channels_last input, avg_pool2d's backward on CUDA gave wrong input
+    # gradients (PyTorch 2.11 on an H100; chip_smoke.py holds the card's
+    # train steps to the CPU's)
+    y = F.avg_pool2d(x.float().contiguous(), _pair(window),
                      _pair(stride if stride is not None else window),
                      _pair(padding), count_include_pad=count_include_pad)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
     return y.to(x.dtype)
 
 

@@ -1,5 +1,6 @@
 """Align-corners bilinear resize as two products against interpolation
-matrices (the counterpart of rtseg_tpu/ops/resize.py).
+matrices, and the nearest resize of label maps (the counterpart of
+rtseg_tpu/ops/resize.py).
 
 The formulation is kept on purpose instead of `F.interpolate`: the two
 products round to the working type at the same places as the JAX package
@@ -50,9 +51,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool
 def interp_operator(in_size: int, out_size: int, align_corners: bool,
                     dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`_interp_matrix` as a tensor of `dtype` on `device`, uploaded once
-    per signature (callers never write to it)."""
-    return torch.from_numpy(
-        _interp_matrix(in_size, out_size, align_corners)).to(device, dtype)
+    per signature (callers never write to it). Made outside inference
+    mode, so that a matrix first asked for by an eval step can be saved
+    for a later training backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners)).to(device, dtype)
 
 
 def resize_bilinear_nchw(x: torch.Tensor, size: Size2,
@@ -102,3 +106,17 @@ def final_upsample(x: torch.Tensor, size: Size2, align_corners: bool = True,
                 'contract to thread the flag.')
         return x
     return resize_bilinear_nchw(x, size, align_corners=align_corners)
+
+
+def resize_nearest(x: torch.Tensor, size: Size2) -> torch.Tensor:
+    """Nearest resize of NHWC `x` (any dtype, label maps included),
+    matching torch F.interpolate(mode='nearest') index math:
+    src = floor(dst * in / out)."""
+    out_h, out_w = _pair(size)
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == (out_h, out_w):
+        return x
+    idx_h = torch.arange(out_h, device=x.device) * h // out_h
+    idx_w = torch.arange(out_w, device=x.device) * w // out_w
+    return x.index_select(1, idx_h.clamp_(0, h - 1)).index_select(
+        2, idx_w.clamp_(0, w - 1))

@@ -1,5 +1,12 @@
-"""Eval and predict steps (counterpart of the eval side of
-rtseg_tpu/train/step.py: build_eval_step, build_predict_step).
+"""Train, eval and predict steps (counterpart of rtseg_tpu/train/step.py:
+_make_forward_loss and build_train_step, build_eval_step,
+build_predict_step).
+
+The train step casts the images to config.compute_dtype, runs the model in
+training mode (plain, or with the aux heads, whose losses take the labels
+nearest-resized to each head's resolution), backpropagates the loss into
+float32 gradients, writes the step's LR and momentum into the SGD param
+group, updates, and moves the EMA model. One card: no gradient all-reduce.
 
 The eval step casts the images to config.compute_dtype, runs the model with
 its final upsample deferred when the fused head is on, computes the int32
@@ -20,11 +27,16 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from ..losses import get_loss_fn
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
+from ..ops.resize import resize_nearest
 from ..utils.metrics import confusion_matrix
+from .optim import get_lr_schedule, get_momentum, set_hparams
+from .state import TrainState, ema_mirror, ema_update
 
 
 def _resolve(flag: Optional[bool], device: torch.device) -> bool:
@@ -39,6 +51,73 @@ def compute_dtype(config) -> torch.dtype:
         raise ValueError(f'compute_dtype {name!r}: the port runs float32 '
                          f'or bfloat16')
     return getattr(torch, name)
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f'{what} is not ported to PyTorch yet; see '
+                              f'ROADMAP.md Queue 1 {item}')
+
+
+def _make_forward_loss(config) -> Callable:
+    """forward_loss(model, images, masks) -> float32 loss: cast to the
+    compute dtype, training forward, the loss and the aux losses."""
+    if config.use_detail_head:
+        _refuse('use_detail_head (the STDC detail loss)', 'item 4')
+    if config.kd_training:
+        _refuse('kd_training (the KD loss and teacher)', 'item 4')
+    loss_fn = get_loss_fn(config)
+    dtype = compute_dtype(config)
+
+    def forward_loss(model, images, masks):
+        out = model(images.to(dtype))
+        if not config.use_aux:
+            return loss_fn(out, masks)
+        preds, preds_aux = out
+        loss = loss_fn(preds, masks)
+        coefs = config.aux_coef if config.aux_coef is not None \
+            else (1.0,) * len(preds_aux)
+        if len(coefs) != len(preds_aux):
+            raise ValueError(
+                'Auxiliary loss coefficient length does not match.')
+        for coef, pa in zip(coefs, preds_aux):
+            ms = resize_nearest(masks[..., None], pa.shape[1:3])[..., 0]
+            loss = loss + coef * loss_fn(pa, ms)
+        return loss
+
+    return forward_loss
+
+
+def build_train_step(config, norm_coeffs=None) -> Callable:
+    """train_step(state, images [B,H,W,3], masks [B,H,W]) -> (state,
+    {'loss': 0-dim float32 tensor on the device}); updates `state` in
+    place. The loss is not read back."""
+    if norm_coeffs is not None:
+        _refuse('the uint8 flip+normalize tail (norm_coeffs)', 'item 3')
+    forward_loss = _make_forward_loss(config)
+    lr_fn = get_lr_schedule(config)
+    mom = get_momentum(config)
+    total_itrs = np.float32(max(int(config.total_itrs), 1))
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   masks: torch.Tensor):
+        model, k = state.model, state.step
+        model.train()
+        set_hparams(state.optimizer, lr_fn(k),
+                    mom(k) if callable(mom) else mom)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = forward_loss(model, images, masks)
+        loss.backward()
+        state.optimizer.step()
+        state.step = k + 1
+        if config.use_ema:
+            # ramp decay (reference utils/model_ema.py:35-40)
+            decay = np.clip(np.float32(state.step) / total_itrs, 0, 1)
+            ema_update(model, state.ema_model, decay)
+        else:
+            ema_mirror(model, state.ema_model)
+        return state, {'loss': loss.detach()}
+
+    return train_step
 
 
 def _predict(model, images, dtype, fused: bool) -> torch.Tensor:

@@ -105,8 +105,15 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
 
 def to_jax_variables(model: torch.nn.Module) -> dict:
     """The module's weights as Flax variables (nested numpy dicts)."""
+    return state_dict_to_flax(model.state_dict())
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors keyed by the module's state_dict names (weights, or buffers
+    shaped like them such as SGD momentum) as Flax variables, nested numpy
+    dicts under the Flax paths of those names."""
     flat = {}
-    for key, v in model.state_dict().items():
+    for key, v in sd.items():
         parts = tuple(key.split('.'))
         if parts[-1] == _TORCH_ONLY:
             continue

@@ -23,7 +23,8 @@ NC, H, W = 19, 64, 128
 def _config(**kw):
     base = dict(model='bisenetv2', use_aux=True, num_class=NC,
                 dataset='synthetic', crop_h=H, crop_w=W, val_bs=4,
-                synthetic_len=16, compute_dtype='float32', random_seed=3)
+                synthetic_len=16, compute_dtype='float32', random_seed=3,
+                load_ckpt=False)
     base.update(kw)
     return SegConfig(**base)
 
@@ -158,9 +159,13 @@ def test_port_refuses_what_it_does_not_implement():
             get_model(_config(**{lever: True}))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         get_model(_config(model='fastscnn', use_aux=False))
+    # training is ported: with the aux heads the training forward returns
+    # the logits and the four aux logits
     model = get_model(_config())
-    with pytest.raises(NotImplementedError, match='eval'):
-        model.train()(torch.zeros(1, H, W, 3))
+    with torch.no_grad():
+        out = model.train()(torch.zeros(2, H, W, 3))
+    assert isinstance(out, tuple) and len(out[1]) == 4
+    assert tuple(out[0].shape) == (2, H, W, NC)
 
 
 def test_val_loader_matches_jax_loader():
