@@ -31,13 +31,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      optimizer+EMA), the card's time by operator over two steps
      (torch.profiler), the OHEM loss alone, the peak memory, and run()'s
      wall time beside the loaders alone
-  6. times (CUDA events after warm-up) of each kernel, its plain version
+  6. zoo: for FastSCNN, DDRNet-23-slim (aux head) and STDC1 (detail
+     head), SegTrainer(cfg).run() at 512x1024 bs16 bf16 (OHEM, SGD under
+     OneCycle, EMA) for 1 epoch of 3 steps with its validation and
+     val_best() through K1 and K2 (launch counts read around the run), and
+     the same run again in the process; K1 and K2 on the EMA model's logits
+     of the val batch against their plain versions; 3 float32 train steps
+     on the card (deterministic cuDNN) against the CPU path at 64x128,
+     with STDC's detail_conv (no gradient) moved by weight decay as on the
+     CPU; the train step's time, split, profile and peak memory; the eval
+     step at 1024x2048 and K1, K2 timed on each model's logits there
+  7. times (CUDA events after warm-up) of each kernel, its plain version
      and a one-call library yardstick, beside the bound and the share of
      it reached; K1 at several class counts (each checked); the slice's
      imgs/s; K1's row loop at the issue rate, from its SASS (phase 1)
-  7. the {"kernels": [...]} line, whose launch counts are those of the
-     eval slice (phase 4) and the train run (phase 5) together;
-  8. the {"ok": true, ...} line.
+  8. the {"train": ...} and {"zoo": ...} lines, and the {"kernels": [...]}
+     line, whose launch counts are those of the eval slice (phase 4), the
+     train run (phase 5) and the zoo's runs (phase 6) together;
+  9. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -404,7 +415,7 @@ def _train_config(save_dir, **kw):
 def _same_weights(a, b, tol: float = 0.0, path: str = ''):
     """(largest |a - b|, its leaf) over two Flax-shaped variable trees;
     fails where a leaf is not within tol as np.allclose(atol=tol,
-    rtol=tol) reads it (tol 0: equal)."""
+    rtol=tol) reads it (tol 0: equal; tol inf: no check)."""
     worst = (0.0, '')
     for k, v in a.items():
         name = f'{path}/{k}'
@@ -412,21 +423,18 @@ def _same_weights(a, b, tol: float = 0.0, path: str = ''):
             worst = max(worst, _same_weights(v, b[k], tol, name))
             continue
         x, y = np.asarray(v), np.asarray(b[k])
-        check(np.allclose(x, y, atol=tol, rtol=tol),
+        check(tol == math.inf or np.allclose(x, y, atol=tol, rtol=tol),
               f'{name} differs by {np.abs(x - y).max()} (tolerance {tol})')
         worst = max(worst, (float(np.abs(x - y).max()), name))
     return worst
 
 
-def _train_card_vs_cpu(variables):
-    """3 float32 train steps at 64x128, bs 4 (the first epoch of the
-    train loader: 12 distinct synthetic samples), on the card (TF32 off)
-    and on the CPU path from the same weights, with cuDNN's deterministic
-    algorithms. Rounding differences grow most in the third step, the
-    first at the peak LR, so a card run with the default algorithms,
-    which reduce in no fixed order, can move by several 1e-4 from one run
-    to the next; that run is made too, and its distance from
-    the deterministic one printed, not checked."""
+def _card_vs_cpu_runs(variables, devices, **kw):
+    """{device: (losses, Flax-shaped weights, EMA weights)} of 3 float32
+    train steps at 64x128, bs 4 (the first epoch of the train loader: 12
+    distinct synthetic samples) from the same weights, on each of
+    `devices` ('cuda', 'cpu', or 'cuda default' for the card with cuDNN's
+    default algorithms; the others run its deterministic ones)."""
     from rtseg_tpu_torch.train import SegTrainer
     from rtseg_tpu_torch.utils.convert import to_jax_variables
     small = dict(crop_h=64, crop_w=128, train_bs=4, val_bs=4,
@@ -434,39 +442,55 @@ def _train_card_vs_cpu(variables):
                  load_ckpt=False)
     runs = {}
     deterministic = torch.backends.cudnn.deterministic
-    for d in ('cuda', 'cpu', 'cuda default'):
+    for d in devices:
         torch.backends.cudnn.deterministic = d != 'cuda default'
         dev = d.split()[0]
-        t = SegTrainer(_train_config('unused', **small), device=dev,
-                       variables=variables)
+        t = SegTrainer(_train_config('unused', **{**small, **kw}),
+                       device=dev, variables=variables)
         t.train_loader.set_epoch(0)
         losses = []
         for imgs, msks in t.train_loader:
             _, m = t.train_step(t.state, imgs.to(dev), msks.to(dev))
-            losses.append(float(m['loss']))
+            losses.append({k: float(v) for k, v in m.items()})
         check(len(losses) == 3, f'{len(losses)} small train steps')
         runs[d] = (losses, to_jax_variables(t.model),
                    to_jax_variables(t.ema_model))
     torch.backends.cudnn.deterministic = deterministic
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs['cuda'][0],
-                                                   runs['cpu'][0]))
+    return runs
+
+
+def _rel_loss(a, b) -> float:
+    """Largest relative difference of two runs' per-step metrics."""
+    return max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(a, b) for k in y)
+
+
+def _train_card_vs_cpu(variables):
+    """BiSeNetv2's 3 steps on the card (TF32 off) and on the CPU path with
+    cuDNN's deterministic algorithms. Rounding differences grow most in
+    the third step, the first at the peak LR, so a card run with the
+    default algorithms, which reduce in no fixed order, can move by
+    several 1e-4 from one run to the next; that run is made too, and its
+    distance from the deterministic one printed, not checked."""
+    runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu', 'cuda default'))
+    rel = _rel_loss(runs['cuda'][0], runs['cpu'][0])
     check(rel <= 1e-3, f'card vs CPU train losses differ by {rel}')
     dw = _same_weights(runs['cuda'][1], runs['cpu'][1], 1e-3)
     de = _same_weights(runs['cuda'][2], runs['cpu'][2], 1e-3)
     spread = _same_weights(runs['cuda default'][1], runs['cuda'][1],
                            math.inf)
     say(f'small fp32 train, card (deterministic cuDNN) vs CPU, 3 steps of '
-        f'4 distinct samples: losses {runs["cuda"][0]} vs '
-        f'{runs["cpu"][0]} (largest relative difference {rel:.2e}, '
-        f'tolerance 1e-3); params+BN statistics differ by at most '
-        f'{dw[0]:.2e} ({dw[1]}), EMA by {de[0]:.2e} ({de[1]}); tolerance '
-        f'1e-3 absolute and relative. The card with cuDNN\'s default '
-        f'algorithms: params+BN statistics {spread[0]:.2e} ({spread[1]}) '
-        f'from its deterministic run (not checked)')
+        f'4 distinct samples: losses '
+        f'{[m["loss"] for m in runs["cuda"][0]]} vs '
+        f'{[m["loss"] for m in runs["cpu"][0]]} (largest relative '
+        f'difference {rel:.2e}, tolerance 1e-3); params+BN statistics '
+        f'differ by at most {dw[0]:.2e} ({dw[1]}), EMA by {de[0]:.2e} '
+        f'({de[1]}); tolerance 1e-3 absolute and relative. The card with '
+        f'cuDNN\'s default algorithms: params+BN statistics {spread[0]:.2e} '
+        f'({spread[1]}) from its deterministic run (not checked)')
     return rel, max(dw, de)[0], spread[0]
 
 
-def _profile_step(step, state, imgs, msks, n: int = 2):
+def _profile_step(step, state, imgs, msks, n: int = 2, label='train'):
     """torch.profiler over n train steps: the card's time by operator
     (self time of the kernels each launched), the 12 largest, and the
     share of the steps' wall that the card was busy."""
@@ -485,12 +509,49 @@ def _profile_step(step, state, imgs, msks, n: int = 2):
     total = sum(t for t, _, _ in ops)
     check(total > 0, 'the profiler saw no device time')
     ops.sort(reverse=True)
-    say(f'train step profile ({n} steps, torch.profiler): card busy '
+    say(f'{label} step profile ({n} steps, torch.profiler): card busy '
         f'{total:.3f} ms a step of {wall_ms / n:.3f} ms wall; by operator '
         f'(self device ms a step, calls a step): '
         + '; '.join(f'{k} {t:.3f} ({c})' for t, c, k in ops[:12]))
     return {'device_ms': total, 'wall_ms': wall_ms / n,
             'top': [[k, t, c] for t, c, k in ops[:12]]}
+
+
+def _step_times(trainer, cfg, imgs, msks):
+    """The train step on a resident batch: its ms, the split (forward+loss,
+    backward, optimizer+EMA; one event each, after a synchronise), the
+    peak memory of a step and the memory allocated before it."""
+    from rtseg_tpu_torch.train.optim import set_hparams
+    from rtseg_tpu_torch.train.state import ema_update
+    from rtseg_tpu_torch.train.step import _make_forward_loss
+    st, step = trainer.state, trainer.train_step
+    forward_loss = _make_forward_loss(cfg)
+    step_ms = time_ms(lambda: step(st, imgs, msks), iters=5, warmup=2)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(st, imgs, msks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = np.zeros(3)
+    iters = 5
+    for i in range(iters + 2):
+        st.model.train()
+        set_hparams(st.optimizer, 1e-3, 0.9)
+        st.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = forward_loss(st.model, imgs, msks)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        st.optimizer.step()
+        ema_update(st.model, st.ema_model, 0.5)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            parts += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+    st.model.eval()
+    return step_ms, parts / iters, peak, before
 
 
 def phase_train(dev, card):
@@ -502,9 +563,6 @@ def phase_train(dev, card):
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
                                                     confusion_matrix_plain)
     from rtseg_tpu_torch.train import SegTrainer
-    from rtseg_tpu_torch.train.optim import set_hparams
-    from rtseg_tpu_torch.train.step import _make_forward_loss
-    from rtseg_tpu_torch.train.state import ema_update
     from rtseg_tpu_torch.utils.convert import (random_jax_variables,
                                                to_jax_variables)
 
@@ -621,34 +679,8 @@ def phase_train(dev, card):
     train_rel, train_abs, train_spread = _train_card_vs_cpu(variables)
 
     # times on a resident batch
+    step_ms, parts, peak, before = _step_times(trainer, cfg, imgs, msks)
     st, step = trainer.state, trainer.train_step
-    forward_loss = _make_forward_loss(cfg)
-    step_ms = time_ms(lambda: step(st, imgs, msks), iters=5, warmup=2)
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    step(st, imgs, msks)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    parts = np.zeros(3)
-    iters = 5
-    for i in range(iters + 2):
-        st.model.train()
-        set_hparams(st.optimizer, 1e-3, 0.9)
-        st.optimizer.zero_grad(set_to_none=True)
-        ev[0].record()
-        loss = forward_loss(st.model, imgs, msks)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        st.optimizer.step()
-        ema_update(st.model, st.ema_model, 0.5)
-        ev[3].record()
-        torch.cuda.synchronize()
-        if i >= 2:
-            parts += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
-    parts /= iters
-    st.model.eval()
     profile = _profile_step(step, st, imgs, msks)
     ohem_ms = time_ms(lambda: ohem_cross_entropy(logits, msks), iters=10)
     eval_ms = time_ms(lambda: trainer.eval_step(imgs, msks), iters=5)
@@ -687,6 +719,191 @@ def phase_train(dev, card):
 
 
 # ------------------------------------------------------------------ phase 6
+# (model name, config switches, the TPU config it ports: BASELINE.json #0
+# and #2)
+ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False)),
+       ('DDRNet-23-slim', dict(model='ddrnet', use_aux=True)),
+       ('STDC1', dict(model='stdc', use_aux=False, use_detail_head=True)))
+
+
+def _zoo_card_vs_cpu(name, variables, kw):
+    """3 float32 steps at 64x128 on the card (deterministic cuDNN) and on
+    the CPU, at a peak LR of 1e-3 and, for STDC, a weight decay of 0.5,
+    so that the decay of detail_conv, which has no gradient, shows: it
+    must have moved, and by the CPU's amount. The first step's metrics
+    (the same weights: forward and loss) agree within 1e-5 relative; every
+    step's within 1e-3 and the weights within 1e-3, as BiSeNetv2's: from
+    random weights float32 rounding alone parts the later steps of two
+    runs by more than 1e-5 (ROADMAP.md Queue 3)."""
+    wd = 0.5 if kw.get('use_detail_head') else 1e-4
+    runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu'), base_lr=1e-3,
+                             weight_decay=wd, **kw)
+    card, cpu = runs['cuda'], runs['cpu']
+    first = _rel_loss(card[0][:1], cpu[0][:1])
+    rel = _rel_loss(card[0], cpu[0])
+    dw = _same_weights(card[1], cpu[1], math.inf)
+    de = _same_weights(card[2], cpu[2], math.inf)
+    extra = ''
+    if kw.get('use_detail_head'):
+        k0 = np.asarray(variables['params']['detail_conv']['conv']['kernel'])
+        kc, kp = (np.asarray(r[1]['params']['detail_conv']['conv']['kernel'])
+                  for r in (card, cpu))
+        moved = float(np.abs(kc - k0).max())
+        extra = (f'; detail_conv (no gradient) moved {moved:.3e} by weight '
+                 f'decay, card - CPU {float(np.abs(kc - kp).max()):.2e} '
+                 f'(tolerance 1e-6)')
+    say(f'zoo {name} small fp32 train, card (deterministic cuDNN) vs CPU, '
+        f'3 steps: {card[0]} vs {cpu[0]}; first step {first:.2e} relative '
+        f'(tolerance 1e-5), all steps {rel:.2e} (tolerance 1e-3); params+BN '
+        f'statistics {dw[0]:.2e} ({dw[1]}), EMA {de[0]:.2e} ({de[1]}) '
+        f'(tolerance 1e-3){extra}')
+    check(first <= 1e-5, f'{name} card vs CPU first-step loss {first}')
+    check(rel <= 1e-3, f'{name} card vs CPU train losses differ by {rel}')
+    _same_weights(card[1], cpu[1], 1e-3)
+    _same_weights(card[2], cpu[2], 1e-3)
+    if kw.get('use_detail_head'):
+        check(moved > 1e-4, f'{name} detail_conv moved {moved}')
+        check(np.allclose(kc, kp, atol=1e-6, rtol=1e-6),
+              f'{name} detail_conv card {kc.ravel()} CPU {kp.ravel()}')
+    return first, rel, max(dw, de)[0]
+
+
+def phase_zoo(dev, card, eval_imgs, eval_msks):
+    """FastSCNN, DDRNet-23-slim (aux head) and STDC1 (detail head):
+    SegTrainer(cfg).run() at 512x1024 bs16 bf16 (SGD OneCycle, EMA, OHEM)
+    for 1 epoch of 3 steps and a validation of 16 images (then val_best's)
+    through K1 and K2 with their launch counts; K1 and K2 on the EMA
+    model's logits of a val batch against their plain versions; 3 float32
+    steps card vs CPU; the step's times, its profile, peak memory and the
+    eval step at 1024x2048 with K1 and K2 timed on the model's logits."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
+                                                    confusion_matrix_plain)
+    from rtseg_tpu_torch.train import SegTrainer, build_eval_step
+    from rtseg_tpu_torch.utils.convert import random_jax_variables
+
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    out = {}
+    for name, kw in ZOO:
+        tmp = tempfile.mkdtemp(prefix='chip_smoke_zoo_')
+        try:
+            zkw = dict(synthetic_len=3 * B, total_epoch=1, **kw)
+            cfg = _train_config(tmp, **zkw)
+            variables = random_jax_variables(get_model(cfg), seed=1)
+            trainer = SegTrainer(cfg, variables=variables)
+            n_val = len(trainer.val_loader)
+            check(n_val == 1, f'{name}: {n_val} val batches')
+            resize_argmax.launches = 0
+            confusion_matrix_pallas.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            miou = trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {'resize_argmax': resize_argmax.launches,
+                   'confusion_matrix': confusion_matrix_pallas.launches}
+            losses = trainer.epoch_losses
+            say(f'zoo {name}: bf16, {cfg.loss_type}, aux {cfg.use_aux}, '
+                f'detail head {cfg.use_detail_head}, SGD cos_warmup, EMA; '
+                f'{len(trainer.train_loader)} steps of {B}x{TRAIN_H}x'
+                f'{TRAIN_W}; run() {wall:.3f} s (cold); epoch loss {losses}; '
+                f'step {trainer.state.step}; val_best mIoU {miou:.6f}; '
+                f'launches {got} for {2 * n_val} val batches')
+            check(len(losses) == 1 and math.isfinite(losses[0]),
+                  f'{name} epoch losses {losses}')
+            check(trainer.state.step == 3, f'{name} step {trainer.state.step}')
+            check(math.isfinite(miou), f'{name} mIoU is not finite')
+            # the epoch's validation and val_best's
+            check(all(v == 2 * n_val for v in got.values()),
+                  f'{name} launch counts {got} != {2 * n_val} val batches')
+            for k, v in got.items():
+                launches[k] += v
+            again = SegTrainer(_train_config(tempfile.mkdtemp(dir=tmp),
+                                             **zkw), variables=variables)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again.run()
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+            del again
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # K1 and K2 on the EMA model's deferred bf16 logits of the val batch
+        imgs, msks = next(iter(trainer.val_loader))
+        imgs, msks = imgs.to(dev), msks.to(dev)
+        with torch.inference_mode():
+            low = trainer.ema_model(imgs.to(torch.bfloat16),
+                                    defer_upsample=True).contiguous()
+        check(tuple(low.shape) == (B, TRAIN_H // 8, TRAIN_W // 8, C),
+              f'{name} deferred logits {tuple(low.shape)}')
+        preds = resize_argmax(low, (TRAIN_H, TRAIN_W))
+        k1_rate = _rate(preds, _argmax_ref(low.float(), (TRAIN_H, TRAIN_W)))
+        cm = confusion_matrix_pallas(preds, msks, C, IGNORE)
+        k2_equal = torch.equal(cm, confusion_matrix_plain(preds, msks, C,
+                                                          IGNORE))
+        say(f'zoo {name}: K1 on the EMA model\'s bf16 logits '
+            f'{tuple(low.shape)} -> {TRAIN_H}x{TRAIN_W}: mismatch '
+            f'{k1_rate:.3e} against the float32 plain version (tolerance '
+            f'1e-4); K2 there bit-equal {k2_equal}, total {int(cm.sum())}')
+        check(k1_rate <= 1e-4, f'{name} K1 mismatch {k1_rate}')
+        check(k2_equal, f'{name} K2 differs from its plain version')
+        del low, preds
+
+        cpu_first, cpu_rel, cpu_abs = _zoo_card_vs_cpu(name, variables, kw)
+
+        # times: the train step on a resident train batch
+        trainer.train_loader.set_epoch(0)
+        imgs, msks = next(iter(trainer.train_loader))
+        imgs, msks = imgs.to(dev), msks.to(dev)
+        _, metrics = trainer.train_step(trainer.state, imgs, msks)
+        check(all(math.isfinite(float(v)) for v in metrics.values())
+              and ('loss_detail' in metrics) == bool(cfg.use_detail_head),
+              f'{name} train step metrics {metrics}')
+        step_ms, parts, peak, before = _step_times(trainer, cfg, imgs, msks)
+        profile = _profile_step(trainer.train_step, trainer.state, imgs, msks,
+                                label=f'zoo {name} train')
+        # the eval step at 1024x2048 and K1, K2 on the model's logits there
+        step = build_eval_step(cfg, trainer.ema_model, dev)
+        eval_ms = time_ms(lambda: step(eval_imgs, eval_msks), iters=5)
+        with torch.inference_mode():
+            low = trainer.ema_model(eval_imgs.to(torch.bfloat16),
+                                    defer_upsample=True).contiguous()
+        check(tuple(low.shape) == (B, h, w, C), f'{name} logits {low.shape}')
+        preds = resize_argmax(low, (H, W))
+        rate = _rate(preds, _argmax_ref(low.float(), (H, W)))
+        check(rate <= 1e-4, f'{name} K1 mismatch at {H}x{W}: {rate}')
+        check(torch.equal(confusion_matrix_pallas(preds, eval_msks, C, IGNORE),
+                          confusion_matrix_plain(preds, eval_msks, C,
+                                                 IGNORE)),
+              f'{name} K2 differs from its plain version at {H}x{W}')
+        k1_ms = time_ms(lambda: resize_argmax(low, (H, W)))
+        k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, eval_msks, C,
+                                                        IGNORE))
+        del low, preds
+        say(f'zoo {name} times ({card}): train step on a resident batch '
+            f'{step_ms:.3f} ms = {B / step_ms * 1e3:.2f} imgs/s; split '
+            f'forward+loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, '
+            f'optimizer+EMA {parts[2]:.3f} ms; peak memory of a step '
+            f'{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated '
+            f'before it); run() {wall:.3f} s cold, {warm_wall:.3f} s again '
+            f'in this process; eval step at {H}x{W} {eval_ms:.3f} ms = '
+            f'{B / eval_ms * 1e3:.2f} imgs/s; on its logits K1 {k1_ms:.4f} '
+            f'ms (mismatch {rate:.3e} against the float32 plain version), K2 '
+            f'{k2_ms:.4f} ms (bit-equal)')
+        out[name] = {'step_ms': step_ms, 'parts_ms': parts.tolist(),
+                     'peak_bytes': peak, 'run_cold_s': wall,
+                     'run_warm_s': warm_wall, 'eval_ms': eval_ms,
+                     'k1_ms': k1_ms, 'k2_ms': k2_ms, 'profile': profile,
+                     'card_vs_cpu_first_loss': cpu_first,
+                     'card_vs_cpu_loss': cpu_rel,
+                     'card_vs_cpu_weights': cpu_abs}
+        del trainer, step
+    return launches, out
+
+
+# ------------------------------------------------------------------ phase 7
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                 k2_err, sass):
     import torch.nn.functional as F
@@ -821,10 +1038,13 @@ def main() -> int:
     k2_err = phase_k2(dev)
     trainer, imgs, msks, preds, launches, wall = phase_slice(dev)
     train_launches, train = phase_train(dev, card)
-    launches = {k: v + train_launches[k] for k, v in launches.items()}
+    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks)
+    launches = {k: v + train_launches[k] + zoo_launches[k]
+                for k, v in launches.items()}
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass)
     say(json.dumps({'train': train}))
+    say(json.dumps({'zoo': zoo}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ package. Two fields change meaning: `fused_head` and `use_pallas_metrics`
 resolve their `None` (auto) to "CUDA kernel on a CUDA device, plain PyTorch
 version on the CPU". The TPU-only layout levers (`pack_fullres`,
 `s2d_stem`, `detail_remat`, `hires_remat`) stay as fields; the port's
-BiSeNetv2 refuses them.
+BiSeNetv2 refuses them, and DDRNet and STDC refuse `hires_remat`
+(`s2d_stem` is an exact rewrite of the stem conv in the JAX package: the
+other models compute the same without it).
 
 Mirrors the capability surface of the reference's flat config object
 (reference: configs/base_config.py:2-109) but as an explicit dataclass with a

@@ -1,8 +1,10 @@
 """Loss factory (counterpart of rtseg_tpu/losses/__init__.py). Ported:
-cross-entropy and OHEM cross-entropy. The dice, detail and KD losses and
-`laplacian_pyramid` come with STDC and KD (ROADMAP.md Queue 1 item 4)."""
+cross-entropy, OHEM cross-entropy, and the STDC detail loss with
+`laplacian_pyramid`. The KD loss comes with KD (ROADMAP.md Queue 1 item
+4)."""
 
-from .losses import cross_entropy, ohem_cross_entropy
+from .losses import (bce_with_logits, cross_entropy, detail_loss, dice_loss,
+                     laplacian_pyramid, ohem_cross_entropy)
 
 
 def get_loss_fn(config):
@@ -21,4 +23,15 @@ def get_loss_fn(config):
     return fn
 
 
-__all__ = ['cross_entropy', 'ohem_cross_entropy', 'get_loss_fn']
+def get_detail_loss_fn(config):
+    """loss(detail logits, binary targets): dice + BCE weighted by
+    config.dice_loss_coef and config.bce_loss_coef."""
+    def fn(logits, targets):
+        return detail_loss(logits, targets, config.dice_loss_coef,
+                           config.bce_loss_coef)
+    return fn
+
+
+__all__ = ['bce_with_logits', 'cross_entropy', 'detail_loss', 'dice_loss',
+           'laplacian_pyramid', 'ohem_cross_entropy', 'get_loss_fn',
+           'get_detail_loss_fn']

@@ -1,5 +1,6 @@
 """Segmentation losses (counterpart of rtseg_tpu/losses/losses.py:
-cross_entropy and ohem_cross_entropy).
+cross_entropy, ohem_cross_entropy, the STDC detail loss and the Laplacian
+pyramid of its ground truth).
 
 Inputs are NHWC logits [B, H, W, C] (bf16 or float32) and integer labels
 [B, H, W]. Both losses compute a float32 log-softmax and follow the JAX
@@ -16,6 +17,8 @@ package's arithmetic, so the port's training loss is the JAX package's:
     a bisection find a threshold at or below the n_min-th largest loss and
     keep every pixel at or above it (at least n_min). The bisection runs on
     the device: no value is read back to the host.
+  * detail_loss is dice (on raw logits, as the reference computes it) plus
+    binary cross-entropy with logits, both in float32.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..ops.resize import resize_nearest
 
 # above this many pixels the exact rank sort gives way to the bisection,
 # as in the JAX package (the two branches must switch at the same size for
@@ -92,3 +98,49 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     keep = valid & ((pix.detach() > loss_thresh) | hard)
     cnt = torch.clamp_min(keep.sum(), 1)
     return torch.where(keep, pix, 0.0).sum() / cnt
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+              smooth: float = 1.0) -> torch.Tensor:
+    """Dice per sample over the raw logits (not probabilities), averaged
+    over the batch."""
+    b = logits.shape[0]
+    p = logits.float().reshape(b, -1)
+    t = targets.float().reshape(b, -1)
+    inter = (p * t).sum(dim=1)
+    per = 1.0 - (2.0 * inter + smooth) / (p.sum(dim=1) + t.sum(dim=1)
+                                          + smooth)
+    return per.mean()
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
+                    ) -> torch.Tensor:
+    x, t = logits.float(), targets.float()
+    return torch.mean(torch.clamp_min(x, 0) - x * t
+                      + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+def detail_loss(logits: torch.Tensor, targets: torch.Tensor,
+                dice_coef: float = 1.0, bce_coef: float = 1.0
+                ) -> torch.Tensor:
+    """STDC detail head loss: dice + BCE."""
+    return (dice_coef * dice_loss(logits, targets)
+            + bce_coef * bce_with_logits(logits, targets))
+
+
+_LAPLACIAN = ((-1., -1., -1.), (-1., 8., -1.), (-1., -1., -1.))
+
+
+def laplacian_pyramid(masks: torch.Tensor) -> torch.Tensor:
+    """The fixed 3x3 Laplacian of the float label map (ignore pixels
+    included) at strides 1, 2 and 4 with padding 1, the strided ones
+    nearest-resized back: [B, H, W] int -> [B, H, W, 3] float32. Integer
+    arithmetic in float32, so exact on any device."""
+    x = masks.float()[:, None]                                # B,1,H,W
+    k = torch.tensor(_LAPLACIAN, device=x.device).reshape(1, 1, 3, 3)
+    h, w = x.shape[2], x.shape[3]
+    chans = []
+    for stride in (1, 2, 4):
+        y = F.conv2d(x, k, stride=stride, padding=1).permute(0, 2, 3, 1)
+        chans.append(resize_nearest(y, (h, w)))
+    return torch.cat(chans, dim=-1)

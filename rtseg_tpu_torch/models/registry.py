@@ -1,14 +1,22 @@
 """Model registry of the port (counterpart of rtseg_tpu/models/registry.py).
 
-Only BiSeNetv2 is ported so far; every other name of the JAX zoo raises
-NotImplementedError, and ROADMAP.md holds the order in which they come.
+Ported: BiSeNetv2, DDRNet, FastSCNN and STDC. Every other name of the JAX
+zoo raises NotImplementedError, and ROADMAP.md holds the order in which
+they come. Aux heads are built only for the aux models and the detail head
+only for the detail models; asking either of another model raises
+ValueError.
 """
 
 from __future__ import annotations
 
 from .bisenetv2 import BiSeNetv2
+from .ddrnet import DDRNet
+from .fastscnn import FastSCNN
+from .stdc import STDC
 
-PORTED = ('bisenetv2',)
+PORTED = ('bisenetv2', 'ddrnet', 'fastscnn', 'stdc')
+AUX_MODELS = ('bisenetv2', 'ddrnet', 'icnet')
+DETAIL_HEAD_MODELS = ('stdc',)
 
 
 def get_model(config, device=None):
@@ -19,8 +27,22 @@ def get_model(config, device=None):
         raise NotImplementedError(
             f'Model {name!r} is not ported to PyTorch yet (ported: '
             f'{", ".join(PORTED)}); see ROADMAP.md Queue 1')
-    return BiSeNetv2(num_class=config.num_class, use_aux=config.use_aux,
-                     detail_remat=config.detail_remat,
-                     pack_fullres=config.pack_fullres,
-                     hires_remat=config.hires_remat,
-                     s2d_stem=config.s2d_stem, device=device)
+    if config.use_aux and name not in AUX_MODELS + DETAIL_HEAD_MODELS:
+        raise ValueError(f'Model {name} does not support auxiliary heads.')
+    if config.use_detail_head and name not in DETAIL_HEAD_MODELS:
+        raise ValueError(f'Model {name} does not support detail heads.')
+    nc = config.num_class
+    if name == 'bisenetv2':
+        return BiSeNetv2(num_class=nc, use_aux=config.use_aux,
+                         detail_remat=config.detail_remat,
+                         pack_fullres=config.pack_fullres,
+                         hires_remat=config.hires_remat,
+                         s2d_stem=config.s2d_stem, device=device)
+    if name == 'ddrnet':
+        return DDRNet(num_class=nc, use_aux=config.use_aux,
+                      hires_remat=config.hires_remat, device=device)
+    if name == 'stdc':
+        return STDC(num_class=nc, use_detail_head=config.use_detail_head,
+                    use_aux=config.use_aux, hires_remat=config.hires_remat,
+                    device=device)
+    return FastSCNN(num_class=nc, device=device)

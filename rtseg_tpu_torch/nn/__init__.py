@@ -1,5 +1,7 @@
 from .modules import (ACTIVATIONS, Activation, BatchNorm, Conv, ConvBNAct,
-                      DWConvBNAct, PReLU, PWConvBNAct, SegHead)
+                      DSConvBNAct, DWConvBNAct, PReLU, PWConvBNAct,
+                      PyramidPoolingModule, SegHead)
 
 __all__ = ['ACTIVATIONS', 'Activation', 'BatchNorm', 'Conv', 'ConvBNAct',
-           'DWConvBNAct', 'PReLU', 'PWConvBNAct', 'SegHead']
+           'DSConvBNAct', 'DWConvBNAct', 'PReLU', 'PWConvBNAct',
+           'PyramidPoolingModule', 'SegHead']

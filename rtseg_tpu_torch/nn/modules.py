@@ -20,6 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.pool import adaptive_avg_pool_nchw
+from ..ops.resize import resize_bilinear_nchw
+
 Size2 = Union[int, Tuple[int, int]]
 
 
@@ -194,6 +197,53 @@ class PWConvBNAct(ConvBNAct):
                  act_type: str = 'relu', bias: bool = True, device=None):
         super().__init__(in_channels, out_channels, 1, bias=bias,
                          act_type=act_type, device=device)
+
+
+class DSConvBNAct(nn.Module):
+    """Depth-wise separable conv: DWConvBNAct (same channels) ->
+    PWConvBNAct (bias on)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Size2 = 3, stride: Size2 = 1,
+                 dilation: Size2 = 1, act_type: str = 'relu', device=None):
+        super().__init__()
+        self.DWConvBNAct_0 = DWConvBNAct(in_channels, in_channels,
+                                         kernel_size, stride, dilation,
+                                         act_type, device=device)
+        self.PWConvBNAct_0 = PWConvBNAct(in_channels, out_channels, act_type,
+                                         device=device)
+
+    def forward(self, x):
+        return self.PWConvBNAct_0(self.DWConvBNAct_0(x))
+
+
+# ------------------------------------------------------------- composite heads
+
+class PyramidPoolingModule(nn.Module):
+    """PSPNet-style PPM: per pool size an adaptive average pool and a bare
+    1x1 conv `stage{i}` to in/4 channels, align-corners upsampled back;
+    concatenated with the input and fused by a 1x1 PWConvBNAct."""
+
+    POOL_SIZES = (1, 2, 4, 6)
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 act_type: str = 'relu', bias: bool = False, device=None):
+        super().__init__()
+        hid = max(1, in_channels // 4)
+        for i in range(len(self.POOL_SIZES)):
+            setattr(self, f'stage{i + 1}',
+                    Conv(in_channels, hid, 1, device=device))
+        self.PWConvBNAct_0 = PWConvBNAct(
+            in_channels + hid * len(self.POOL_SIZES), out_channels,
+            act_type, bias=bias, device=device)
+
+    def forward(self, x):
+        size = x.shape[2:4]
+        feats = [x]
+        for i, ps in enumerate(self.POOL_SIZES):
+            y = getattr(self, f'stage{i + 1}')(adaptive_avg_pool_nchw(x, ps))
+            feats.append(resize_bilinear_nchw(y, size, align_corners=True))
+        return self.PWConvBNAct_0(torch.cat(feats, dim=1))
 
 
 class SegHead(nn.Module):

@@ -1,4 +1,4 @@
-"""The pools BiSeNetv2 uses (the counterpart of rtseg_tpu/ops/pool.py).
+"""The pools of the port's models (the counterpart of rtseg_tpu/ops/pool.py).
 
 Public functions take NHWC tensors, like the JAX package; the `_nchw`
 forms are what the model calls.
@@ -43,6 +43,17 @@ def avg_pool_nchw(x: torch.Tensor, window: Size2,
     return y.to(x.dtype)
 
 
+def adaptive_avg_pool_nchw(x: torch.Tensor, output_size: Size2
+                           ) -> torch.Tensor:
+    # torch's adaptive windows are the JAX package's (_adaptive_windows copies
+    # them): cell i covers [floor(i*in/out), ceil((i+1)*in/out)). Summed in
+    # float32 and pooled in the contiguous NCHW layout, as avg_pool_nchw
+    y = F.adaptive_avg_pool2d(x.float().contiguous(), _pair(output_size))
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y.to(x.dtype)
+
+
 def global_avg_pool_nchw(x: torch.Tensor, keepdims: bool = True
                          ) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=keepdims)
@@ -62,6 +73,10 @@ def avg_pool(x: torch.Tensor, window: Size2, stride: Optional[Size2] = None,
              ) -> torch.Tensor:
     return _nhwc(avg_pool_nchw, x, window, stride, padding,
                  count_include_pad)
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size: Size2) -> torch.Tensor:
+    return _nhwc(adaptive_avg_pool_nchw, x, output_size)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:

@@ -3,10 +3,16 @@ _make_forward_loss and build_train_step, build_eval_step,
 build_predict_step).
 
 The train step casts the images to config.compute_dtype, runs the model in
-training mode (plain, or with the aux heads, whose losses take the labels
-nearest-resized to each head's resolution), backpropagates the loss into
-float32 gradients, writes the step's LR and momentum into the SGD param
-group, updates, and moves the EMA model. One card: no gradient all-reduce.
+training mode (plain; with the aux heads, whose losses take the labels
+nearest-resized to each head's resolution; or with STDC's detail head),
+backpropagates the loss into float32 gradients, writes the step's LR and
+momentum into the SGD param group, updates, and moves the EMA model. One
+card: no gradient all-reduce.
+
+Every parameter enters the update with a gradient, zero where autograd left
+none (STDC's `detail_conv`, which only makes the detail targets): torch SGD
+skips a parameter whose gradient is None, where the JAX package's optax
+chain decays every leaf and moves its momentum.
 
 The eval step casts the images to config.compute_dtype, runs the model with
 its final upsample deferred when the fused head is on, computes the int32
@@ -30,10 +36,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..losses import get_loss_fn
+from ..losses import get_detail_loss_fn, get_loss_fn, laplacian_pyramid
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
-from ..ops.resize import resize_nearest
+from ..ops.resize import resize_bilinear, resize_nearest
 from ..utils.metrics import confusion_matrix
 from .optim import get_lr_schedule, get_momentum, set_hparams
 from .state import TrainState, ema_mirror, ema_update
@@ -59,38 +65,53 @@ def _refuse(what: str, item: str) -> None:
 
 
 def _make_forward_loss(config) -> Callable:
-    """forward_loss(model, images, masks) -> float32 loss: cast to the
-    compute dtype, training forward, the loss and the aux losses."""
-    if config.use_detail_head:
-        _refuse('use_detail_head (the STDC detail loss)', 'item 4')
+    """forward_loss(model, images, masks) -> (float32 loss, metrics): cast
+    to the compute dtype, training forward, the loss and the aux or detail
+    losses; metrics holds `loss_detail` with the detail head."""
     if config.kd_training:
         _refuse('kd_training (the KD loss and teacher)', 'item 4')
     loss_fn = get_loss_fn(config)
+    detail_loss_fn = get_detail_loss_fn(config)
     dtype = compute_dtype(config)
 
     def forward_loss(model, images, masks):
         out = model(images.to(dtype))
-        if not config.use_aux:
-            return loss_fn(out, masks)
-        preds, preds_aux = out
-        loss = loss_fn(preds, masks)
-        coefs = config.aux_coef if config.aux_coef is not None \
-            else (1.0,) * len(preds_aux)
-        if len(coefs) != len(preds_aux):
-            raise ValueError(
-                'Auxiliary loss coefficient length does not match.')
-        for coef, pa in zip(coefs, preds_aux):
-            ms = resize_nearest(masks[..., None], pa.shape[1:3])[..., 0]
-            loss = loss + coef * loss_fn(pa, ms)
-        return loss
+        metrics = {}
+        if config.use_aux:
+            preds, preds_aux = out
+            loss = loss_fn(preds, masks)
+            coefs = config.aux_coef if config.aux_coef is not None \
+                else (1.0,) * len(preds_aux)
+            if len(coefs) != len(preds_aux):
+                raise ValueError(
+                    'Auxiliary loss coefficient length does not match.')
+            for coef, pa in zip(coefs, preds_aux):
+                ms = resize_nearest(masks[..., None], pa.shape[1:3])[..., 0]
+                loss = loss + coef * loss_fn(pa, ms)
+        elif config.use_detail_head:
+            preds, preds_detail = out
+            loss = loss_fn(preds, masks)
+            # detail targets: the Laplacian pyramid of the masks through the
+            # model's own detail_conv on detached weights, hard-thresholded
+            with torch.no_grad():
+                dgt = model.detail_targets(laplacian_pyramid(masks))
+            dgt = (dgt > config.detail_thrs).float()
+            pd = resize_bilinear(preds_detail, dgt.shape[1:3],
+                                 align_corners=True)
+            loss_detail = detail_loss_fn(pd.float(), dgt)
+            metrics['loss_detail'] = loss_detail.detach()
+            loss = loss + config.detail_loss_coef * loss_detail
+        else:
+            loss = loss_fn(out, masks)
+        return loss, metrics
 
     return forward_loss
 
 
 def build_train_step(config, norm_coeffs=None) -> Callable:
     """train_step(state, images [B,H,W,3], masks [B,H,W]) -> (state,
-    {'loss': 0-dim float32 tensor on the device}); updates `state` in
-    place. The loss is not read back."""
+    {'loss': 0-dim float32 tensor on the device, and 'loss_detail' with the
+    detail head}); updates `state` in place. Nothing is read back."""
     if norm_coeffs is not None:
         _refuse('the uint8 flip+normalize tail (norm_coeffs)', 'item 3')
     forward_loss = _make_forward_loss(config)
@@ -105,8 +126,11 @@ def build_train_step(config, norm_coeffs=None) -> Callable:
         set_hparams(state.optimizer, lr_fn(k),
                     mom(k) if callable(mom) else mom)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = forward_loss(model, images, masks)
+        loss, metrics = forward_loss(model, images, masks)
         loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         state.optimizer.step()
         state.step = k + 1
         if config.use_ema:
@@ -115,7 +139,7 @@ def build_train_step(config, norm_coeffs=None) -> Callable:
             ema_update(model, state.ema_model, decay)
         else:
             ema_mirror(model, state.ema_model)
-        return state, {'loss': loss.detach()}
+        return state, {**metrics, 'loss': loss.detach()}
 
     return train_step
 

@@ -240,14 +240,26 @@ def test_validation_runs_the_ema_weights(variables, tmp_path):
 
 
 def test_train_step_refuses_what_it_does_not_implement(tmp_path):
-    for kw in (dict(use_detail_head=True), dict(kd_training=True)):
-        cfg = _config(tmp_path, **kw)
-        cfg.resolve(num_devices=1)
-        cfg.resolve_schedule(4)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            build_train_step(cfg)
+    cfg = _config(tmp_path, kd_training=True)
+    cfg.resolve(num_devices=1)
+    cfg.resolve_schedule(4)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build_train_step(cfg)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         build_train_step(cfg, norm_coeffs=(1.0, 0.0))
+    # the detail head is built (STDC's train step is held to the JAX
+    # package in tests/test_torch_zoo_train.py)
+    cfg = _config(tmp_path, model='stdc', use_aux=False,
+                  use_detail_head=True)
+    cfg.resolve(num_devices=1)
+    cfg.resolve_schedule(4)
+    build_train_step(cfg)
+    for kw in (dict(model='fastscnn', use_aux=True),
+               dict(model='stdc', use_aux=True, use_detail_head=True)):
+        with pytest.raises(ValueError, match='support'):
+            get_model(SegConfig(**{**KW, **kw}))
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        get_model(SegConfig(**{**KW, 'model': 'icnet'}))
     cfg = _config(tmp_path, aux_coef=(1.0, 1.0))
     trainer = SegTrainer(cfg, device='cpu')
     imgs, msks = next(iter(trainer.train_loader))
