@@ -1,7 +1,7 @@
 from .modules import (ACTIVATIONS, Activation, BatchNorm, Conv, ConvBNAct,
-                      DSConvBNAct, DWConvBNAct, PReLU, PWConvBNAct,
-                      PyramidPoolingModule, SegHead)
+                      DeConvBNAct, DSConvBNAct, DWConvBNAct, PReLU,
+                      PWConvBNAct, PyramidPoolingModule, SegHead)
 
 __all__ = ['ACTIVATIONS', 'Activation', 'BatchNorm', 'Conv', 'ConvBNAct',
-           'DSConvBNAct', 'DWConvBNAct', 'PReLU', 'PWConvBNAct',
-           'PyramidPoolingModule', 'SegHead']
+           'DeConvBNAct', 'DSConvBNAct', 'DWConvBNAct', 'PReLU',
+           'PWConvBNAct', 'PyramidPoolingModule', 'SegHead']

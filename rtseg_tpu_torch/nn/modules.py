@@ -217,6 +217,35 @@ class DSConvBNAct(nn.Module):
         return self.PWConvBNAct_0(self.DWConvBNAct_0(x))
 
 
+class DeConvBNAct(nn.Module):
+    """Transposed conv (with a bias) -> BN -> act, torch ConvTranspose2d
+    geometry: kernel 2*scale-1 unless given, stride scale, padding
+    (k-1)//2, output_padding scale-1 unless given, so the defaults upsample
+    exactly scale x. The weight is (in, out, k, k); float32, cast to the
+    input type per call like Conv's."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 scale_factor: int = 2, kernel_size: Optional[int] = None,
+                 act_type: str = 'relu',
+                 output_padding: Optional[int] = None, device=None):
+        super().__init__()
+        k = kernel_size if kernel_size is not None else 2 * scale_factor - 1
+        out_pad = output_padding if output_padding is not None \
+            else scale_factor - 1
+        self.deconv = nn.ConvTranspose2d(
+            in_channels, out_channels, k, stride=scale_factor,
+            padding=(k - 1) // 2, output_padding=out_pad, bias=True,
+            device=device)
+        self.BatchNorm_0 = BatchNorm(out_channels, device)
+        self.Activation_0 = Activation(act_type, device)
+
+    def forward(self, x):
+        d = self.deconv
+        x = F.conv_transpose2d(x, d.weight.to(x.dtype), d.bias.to(x.dtype),
+                               d.stride, d.padding, d.output_padding)
+        return self.Activation_0(self.BatchNorm_0(x))
+
+
 # ------------------------------------------------------------- composite heads
 
 class PyramidPoolingModule(nn.Module):

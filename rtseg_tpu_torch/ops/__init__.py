@@ -1,8 +1,11 @@
 from .fused_head import resize_argmax
 from .pallas_metrics import confusion_matrix_pallas
-from .pool import avg_pool, global_avg_pool, max_pool
-from .resize import final_upsample, resize_bilinear, resize_nearest
+from .pool import (adaptive_avg_pool, adaptive_max_pool, avg_pool,
+                   global_avg_pool, max_pool)
+from .resize import (final_upsample, pixel_shuffle, resize_bilinear,
+                     resize_nearest)
 
-__all__ = ['resize_argmax', 'confusion_matrix_pallas',
-           'avg_pool', 'global_avg_pool', 'max_pool', 'final_upsample',
-           'resize_bilinear', 'resize_nearest']
+__all__ = ['resize_argmax', 'confusion_matrix_pallas', 'adaptive_avg_pool',
+           'adaptive_max_pool', 'avg_pool', 'global_avg_pool', 'max_pool',
+           'final_upsample', 'pixel_shuffle', 'resize_bilinear',
+           'resize_nearest']

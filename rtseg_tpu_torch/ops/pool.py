@@ -54,6 +54,30 @@ def adaptive_avg_pool_nchw(x: torch.Tensor, output_size: Size2
     return y.to(x.dtype)
 
 
+def _adaptive_windows(in_size: int, out_size: int):
+    # torch's adaptive window math: cell i covers
+    # [floor(i*in/out), ceil((i+1)*in/out))
+    starts = [(i * in_size) // out_size for i in range(out_size)]
+    ends = [-(-((i + 1) * in_size) // out_size) for i in range(out_size)]
+    return starts, ends
+
+
+def adaptive_max_pool_nchw(x: torch.Tensor, output_size: Size2
+                           ) -> torch.Tensor:
+    """Adaptive max pool as maxima over each cell (`amax`), as the JAX
+    package takes them: at equal maxima the gradient is split evenly among
+    them, where F.adaptive_max_pool2d sends it to one index."""
+    oh, ow = _pair(output_size)
+    n, c, h, w = x.shape
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).amax(dim=(3, 5))
+    hs, he = _adaptive_windows(h, oh)
+    ws, we = _adaptive_windows(w, ow)
+    rows = [torch.stack([x[:, :, hs[i]:he[i], ws[j]:we[j]].amax(dim=(2, 3))
+                         for j in range(ow)], dim=-1) for i in range(oh)]
+    return torch.stack(rows, dim=-2)
+
+
 def global_avg_pool_nchw(x: torch.Tensor, keepdims: bool = True
                          ) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=keepdims)
@@ -77,6 +101,10 @@ def avg_pool(x: torch.Tensor, window: Size2, stride: Optional[Size2] = None,
 
 def adaptive_avg_pool(x: torch.Tensor, output_size: Size2) -> torch.Tensor:
     return _nhwc(adaptive_avg_pool_nchw, x, output_size)
+
+
+def adaptive_max_pool(x: torch.Tensor, output_size: Size2) -> torch.Tensor:
+    return _nhwc(adaptive_max_pool_nchw, x, output_size)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:

@@ -120,3 +120,26 @@ def resize_nearest(x: torch.Tensor, size: Size2) -> torch.Tensor:
     idx_w = torch.arange(out_w, device=x.device) * w // out_w
     return x.index_select(1, idx_h.clamp_(0, h - 1)).index_select(
         2, idx_w.clamp_(0, w - 1))
+
+
+def pixel_shuffle_nchw(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:
+    """Sub-pixel upsample of NCHW `x` (torch nn.PixelShuffle's order):
+    input channel c*r^2 + r1*r + r2 goes to output channel c at spatial
+    offset (r1, r2). Written as a reshape and a permute, whose backward is
+    the inverse permute. A channels_last input gives a channels_last
+    output."""
+    r = upscale_factor
+    n, crr, h, w = x.shape
+    c = crr // (r * r)
+    y = x.reshape(n, c, r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    y = y.reshape(n, c, h * r, w * r)
+    if x.is_contiguous(memory_format=torch.channels_last) \
+            and not x.is_contiguous():
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y
+
+
+def pixel_shuffle(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:
+    """NHWC counterpart of torch nn.PixelShuffle, as the JAX package's."""
+    return pixel_shuffle_nchw(x.permute(0, 3, 1, 2),
+                              upscale_factor).permute(0, 2, 3, 1)

@@ -11,6 +11,13 @@ a state_dict key mechanically:
   batch_stats/<scope...>/bn/mean    -> <scope...>.bn.running_mean
   batch_stats/<scope...>/bn/var     -> <scope...>.bn.running_var
   params/<scope...>/prelu/alpha     -> <scope...>.prelu.weight
+  params/<scope...>/deconv/kernel   -> <scope...>.deconv.weight
+          Flax ConvTranspose(transpose_kernel=True) (kh, kw, out, in)
+          -> torch ConvTranspose2d (in, out, kh, kw)
+  params/<scope...>/deconv/bias     -> <scope...>.deconv.bias
+  params/<scope...>/ca_fc/kernel    -> <scope...>.ca_fc.weight
+                  Dense (in, out) -> Linear (out, in)   (CANet's ca_fc)
+  params/<scope...>/ca_fc/bias      -> <scope...>.ca_fc.bias
 
 Variables are nested dicts of numpy arrays ({'params': ..., 'batch_stats':
 ...}), so no JAX is needed on either side. Loading is strict in both
@@ -35,6 +42,18 @@ _TO_TORCH = {
     ('batch_stats', 'bn', 'mean'): 'running_mean',
     ('batch_stats', 'bn', 'var'): 'running_var',
     ('params', 'prelu', 'alpha'): 'weight',
+    ('params', 'deconv', 'kernel'): 'weight',
+    ('params', 'deconv', 'bias'): 'bias',
+    ('params', 'ca_fc', 'kernel'): 'weight',
+    ('params', 'ca_fc', 'bias'): 'bias',
+}
+# module name -> (rank of its kernel, Flax -> torch axis order); the
+# inverse order maps back. A conv's HWIO and a transposed conv's
+# (kh, kw, out, in) both take (3, 2, 0, 1); each keeps its own rule
+_KERNELS = {
+    'conv': (4, (3, 2, 0, 1)),          # HWIO -> OIHW
+    'deconv': (4, (3, 2, 0, 1)),        # (kh, kw, out, in) -> (in, out, kh, kw)
+    'ca_fc': (2, (1, 0)),               # (in, out) -> (out, in)
 }
 _TO_FLAX = {(mod, t): (coll, f) for (coll, mod, f), t in _TO_TORCH.items()}
 _TORCH_ONLY = 'num_batches_tracked'
@@ -72,10 +91,11 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         if rule is None:
             raise KeyError(f'unmapped Flax leaf {"/".join(path)}')
         if leaf == 'kernel':
-            if v.ndim != 4:
-                raise ValueError(f'{"/".join(path)}: expected a 4-D HWIO '
-                                 f'conv kernel, got shape {v.shape}')
-            v = v.transpose(3, 2, 0, 1)                  # HWIO -> OIHW
+            rank, order = _KERNELS[mod]
+            if v.ndim != rank:
+                raise ValueError(f'{"/".join(path)}: expected a {rank}-D '
+                                 f'{mod} kernel, got shape {v.shape}')
+            v = v.transpose(order)
         key = '.'.join(path[1:-1] + (rule,))
         sd[key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
     return sd
@@ -123,7 +143,7 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
         coll, leaf = rule
         a = v.detach().float().cpu().numpy()
         if leaf == 'kernel':
-            a = a.transpose(2, 3, 1, 0)                  # OIHW -> HWIO
+            a = a.transpose(np.argsort(_KERNELS[parts[-2]][1]))
         flat[(coll,) + parts[:-1] + (leaf,)] = np.ascontiguousarray(a)
     return _nest(flat)
 
@@ -131,7 +151,8 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
 def random_jax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Seeded random Flax variables shaped for `model`, made with numpy.
 
-    Conv kernels are uniform(+-1/sqrt(fan_in)); biases, BatchNorm scales
+    Kernels are uniform(+-1/sqrt(n)), n the product of all their axes
+    but the last (a conv's fan-in); biases, BatchNorm scales
     and running statistics get O(1) draws so that a swapped mapping cannot
     hide behind the 0/1 defaults."""
     rng = np.random.default_rng(seed)
@@ -141,7 +162,7 @@ def random_jax_variables(model: torch.nn.Module, seed: int) -> dict:
         shape = flat[path].shape
         leaf = path[-1]
         if leaf == 'kernel':
-            bound = 1.0 / np.sqrt(np.prod(shape[:3]))
+            bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
             a = rng.uniform(-bound, bound, shape)
         elif leaf == 'bias':
             a = rng.uniform(-0.2, 0.2, shape)
