@@ -129,11 +129,13 @@ class ResNet(nn.Module):
             self.stages.append(names)
         self.channels = tuple(c * block.expansion for c in (64, 128, 256, 512))
 
-    def forward(self, x):
+    def forward(self, x, stages: int = 4):
+        """The features of the first `stages` stages (all four unless a
+        caller needs fewer)."""
         x = torch.relu(self.bn1(self.conv1(x)))
         x = max_pool_nchw(x, 3, 2, 1)
         feats = []
-        for names in self.stages:
+        for names in self.stages[:stages]:
             for name in names:
                 x = getattr(self, name)(x)
             feats.append(x)

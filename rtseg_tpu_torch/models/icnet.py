@@ -7,10 +7,12 @@ units with their aux classifiers, SegHead at 1/4 and the final
 align-corners upsample. Output stride 1/4.
 
 The backbone is one module called twice, first on the 1/4 input and then
-on the 1/2 input, as the JAX model calls it. Both calls run all four
-stages although the second uses only layer2's features: in training each
+on the 1/2 input, as the JAX model calls it. In training both calls run
+all four stages although the second uses only layer2's features: each
 call moves every BatchNorm's running statistics, and the second call's
 updates of layer3 and layer4 are part of the state the JAX step returns.
+Out of training those two stages change nothing, so the second call stops
+after layer2, as XLA drops them from the jitted JAX eval step.
 """
 
 from __future__ import annotations
@@ -103,8 +105,9 @@ class ICNet(nn.Module):
                                     align_corners=True)
         # lowest resolution: the whole dilated backbone and the PPM
         x_d4 = self.ppm(self.backbone(x_d4)[3])
-        # medium resolution: layer2 of the same backbone (every stage runs)
-        f2 = self.backbone(x_d2)[1]
+        # medium resolution: layer2 of the same backbone (every stage runs
+        # in training, for the running statistics)
+        f2 = self.backbone(x_d2, 4 if self.training else 2)[1]
         xh = self.bottom_branch(x)
         aux_on = self.training and self.use_aux
         x_d2, aux2 = self.cff42(x_d4, f2, aux_on)

@@ -163,6 +163,19 @@ def test_mobilenetv2_matches_flax():
             for i in (2, 3, 4, 5)] == [False, True, False, True]
 
 
+def test_resnet_stops_after_the_stages_asked_for():
+    """ResNet(x, stages) returns the first `stages` features of the full
+    call, bit for bit (ICNet's eval-time second call stops after layer2)."""
+    torch.manual_seed(0)
+    module = ResNet('resnet18', (1, 1, 2, 4)).eval()
+    x = torch.from_numpy(_input((2, H, W, 3))).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        full, part = module(x), module(x, 2)
+    assert len(full) == 4 and len(part) == 2
+    for a, b in zip(part, full):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize('in_c,channels,stride,dilation',
                          [(16, 8, 2, 1), (32, 8, 1, 1), (32, 8, 1, 2)],
                          ids=['strided', 'identity', 'dilated'])

@@ -193,6 +193,20 @@ def test_icnet_runs_its_backbone_twice_in_order():
             assert not np.allclose(once[k], bs64[k], atol=1e-3, rtol=1e-3), k
 
 
+def test_icnet_eval_stops_its_second_backbone_call_after_layer2():
+    """Out of training layer3 and layer4 move no running statistics, so
+    ICNet's second backbone call (on the 1/2 input) stops after layer2;
+    its eval logits are held to Flax by test_eval_logits_match_flax."""
+    model = port_model('icnet').eval()
+    calls = []
+    model.backbone.register_forward_hook(
+        lambda m, args, out: calls.append((tuple(args[0].shape[2:]),
+                                           len(out))))
+    with torch.inference_mode():
+        model(torch.from_numpy(_input()))
+    assert calls == [((H // 4, W // 4), 4), ((H // 2, W // 2), 2)]
+
+
 def test_registry_builds_the_backbone_family_and_refuses_the_rest():
     """The eight names build at the JAX registry's defaults (ResNet-18,
     or MobileNetV2 for LiteSeg and CANet); ICNet takes use_aux; the others
