@@ -11,7 +11,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      bf16 logits against the float32 plain version), plus integer logits,
      all-equal logits, the identity size, and in float32 and bfloat16 the
      train run's validation shape [16,64,128,19] -> 512x1024, the
-     1/4-resolution shape [16,256,512,19] -> 1024x2048, W=2050,
+     1/4-resolution shape [16,256,512,19] -> 1024x2048, the output stride
+     2 shapes [16,512,1024,19] -> 1024x2048 and [16,256,512,19] ->
+     512x1024 (float32, bfloat16, and bfloat16 against the float32 plain
+     version), W=2050,
      align_corners=False, a downsample, an odd shape, C=1, C=150
   3. K2 (confusion matrix) against its plain version: bit-equal
   4. the slice: SegTrainer(cfg).validate() of BiSeNetv2 (aux heads, 19
@@ -32,30 +35,41 @@ Phases (each prints its own lines; any failure exits non-zero):
      optimizer+EMA), the card's time by operator over two steps
      (torch.profiler), the OHEM loss alone, the peak memory, and run()'s
      wall time beside the loaders alone
-  6. zoo: for FastSCNN, DDRNet-23-slim (aux head), STDC1 (detail head)
-     and the backbone family, BiSeNetv1, ICNet (aux heads), SwiftNet,
+  6. zoo: for FastSCNN, DDRNet-23-slim (aux head), STDC1 (detail head),
+     the backbone family, BiSeNetv1, ICNet (aux heads), SwiftNet,
      FarSeeNet, ShelfNet, LinkNet (ResNet-18), LiteSeg and CANet
-     (MobileNetV2), SegTrainer(cfg).run() at 512x1024 bs16 bf16 (OHEM,
-     SGD under OneCycle, EMA) for 1 epoch of 3 steps with its validation
-     and val_best() through K1 and K2 (launch counts read around the run:
-     LinkNet's and CANet's logits come at full resolution, so they launch
-     K1 no time and K2 once a val batch); K1 and K2 on the EMA model's
+     (MobileNetV2), PP-LiteSeg, and the InitialBlock-stem models CFPNet,
+     DABNet, ERFNet, ESNet, FDDWNet, FSSNet and MiniNetv2,
+     SegTrainer(cfg).run() from the trainer's default (Flax) init at
+     512x1024 bs16 bf16 (OHEM, SGD under OneCycle, EMA) for 1 epoch of 3
+     steps with its validation and val_best() through K1 and K2 (launch
+     counts read around the run: the logits of LinkNet, CANet, ERFNet,
+     ESNet, FDDWNet and FSSNet come at full resolution, so they launch K1
+     no time and K2 once a val batch); K1 and K2 on the EMA model's
      logits of the val batch against their plain versions; 3 float32
-     train steps of 4 distinct samples (16 for the MobileNetV2 models) on
-     the card (deterministic cuDNN) against the CPU path at 64x128, with
-     STDC's detail_conv (no gradient) moved by weight decay
-     as on the CPU; the train step's time, split, profile and peak memory;
-     the eval step at 1024x2048 and K1, K2 timed on each model's logits
-     there
-  7. times (CUDA events after warm-up) of each kernel, its plain version
+     train steps of 4 distinct samples (16 for the MobileNetV2 models;
+     MiniNetv2 one step with its depth cut) on the card (deterministic
+     cuDNN) against the CPU path at 64x128, with STDC's detail_conv (no
+     gradient) moved by weight decay as on the CPU; the train step's
+     time, split and peak memory, and the profile of the models new in
+     this slice (PROFILED); the eval step at 1024x2048 and K1, K2 timed
+     on each model's logits there
+  7. import: a random torchvision-named ResNet-18 and MobileNetV2
+     state_dict, written to a temp dir, imported through
+     config.backbone_ckpt by SegTrainer on the card into SwiftNet and
+     LiteSeg: the backbone and its EMA hold the dict's values, every other
+     leaf the Flax init
+  8. times (CUDA events after warm-up) of each kernel, its plain version
      and a one-call library yardstick, beside the bound and the share of
-     it reached; K1 also at the 1/4-resolution shape; K1 at several class
+     it reached; K1 also at the 1/4-resolution shape and at output stride
+     2 [16,512,1024,19] -> 1024x2048; K1 at several class
      counts (each checked); the slice's imgs/s; K1's row loop at the
      issue rate, from its SASS (phase 1)
-  8. the {"train": ...} and {"zoo": ...} lines, and the {"kernels": [...]}
-     line, whose launch counts are those of the eval slice (phase 4), the
-     train run (phase 5) and the zoo's runs (phase 6) together;
-  9. the {"ok": true, ...} line.
+  9. the {"train": ...}, {"zoo": ...} and {"import": ...} lines, and the
+     {"kernels": [...]} line, whose launch counts are those of the eval
+     slice (phase 4), the train run (phase 5) and the zoo's runs (phase 6)
+     together;
+  10. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -260,6 +274,27 @@ def phase_k1(dev):
                       torch.argmax(x, -1).to(torch.int32)),
           'K1 identity size differs from argmax')
     say('K1 identity size: equal to argmax')
+    # output stride 2 (MiniNetv2's logits): the eval shape and the train
+    # run's validation shape, float32 and bfloat16 each against the plain
+    # version on the same values, and bfloat16 against the float32 plain
+    # version
+    for shape, size in (((B, H // 2, W // 2, C), (H, W)),
+                        ((B, TRAIN_H // 2, TRAIN_W // 2, C),
+                         (TRAIN_H, TRAIN_W))):
+        xh = torch.randn(shape, generator=g, device=dev)
+        for name, xin, want, tol in (
+                ('float32', xh, xh, 1e-4),
+                ('bfloat16', xh.to(torch.bfloat16), xh.to(torch.bfloat16),
+                 8e-3),
+                ('bfloat16 against the float32 plain version',
+                 xh.to(torch.bfloat16), xh.to(torch.bfloat16).float(),
+                 1e-4)):
+            rate = _rate(resize_argmax(xin, size), _argmax_ref(want, size))
+            say(f'K1 output stride 2 {list(shape)}->{size} {name}: mismatch '
+                f'{rate:.3e} (tolerance {tol:g})')
+            check(rate <= tol, f'K1 stride 2 {shape} {name} mismatch {rate}')
+            out[f'stride2_{shape[1]}_{name.split()[0]}'] = rate
+        del xh
     xs = x[:2].contiguous()
     for name, xin, size, corners in (
             (f'train run validation [{B},{TRAIN_H // 8},{TRAIN_W // 8},{C}]'
@@ -438,14 +473,16 @@ def _same_weights(a, b, tol: float = 0.0, path: str = ''):
     return worst
 
 
-def _card_vs_cpu_runs(variables, devices, **kw):
+def _card_vs_cpu_runs(variables, devices, build=None, **kw):
     """{device: (losses, Flax-shaped weights, EMA weights)} of 3 float32
-    train steps at 64x128, bs 4 unless `kw` sets it (the first epoch of
+    train steps at 64x128, bs 4 unless `kw` sets them (the first epoch of
     the train loader: 12 distinct synthetic samples) from the same
     weights, on each of
     `devices` ('cuda', 'cpu', or 'cuda default' for the card with cuDNN's
-    default algorithms; the others run its deterministic ones)."""
+    default algorithms; the others run its deterministic ones). `build`,
+    where given, makes the trainer's model in place of the registry."""
     from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.train import trainer as trainer_mod
     from rtseg_tpu_torch.utils.convert import to_jax_variables
     small = dict(crop_h=64, crop_w=128, train_bs=4, val_bs=4,
                  synthetic_len=12, compute_dtype='float32', save_ckpt=False,
@@ -455,14 +492,21 @@ def _card_vs_cpu_runs(variables, devices, **kw):
     for d in devices:
         torch.backends.cudnn.deterministic = d != 'cuda default'
         dev = d.split()[0]
-        t = SegTrainer(_train_config('unused', **{**small, **kw}),
-                       device=dev, variables=variables)
+        registry = trainer_mod.get_model
+        trainer_mod.get_model = build or registry
+        try:
+            t = SegTrainer(_train_config('unused', **{**small, **kw}),
+                           device=dev, variables=variables)
+        finally:
+            trainer_mod.get_model = registry
         t.train_loader.set_epoch(0)
         losses = []
         for imgs, msks in t.train_loader:
             _, m = t.train_step(t.state, imgs.to(dev), msks.to(dev))
             losses.append({k: float(v) for k, v in m.items()})
-        check(len(losses) == 3, f'{len(losses)} small train steps')
+        steps = t.config.synthetic_len // t.config.train_bs
+        check(len(losses) == steps, f'{len(losses)} small train steps, '
+              f'not {steps}')
         runs[d] = (losses, to_jax_variables(t.model),
                    to_jax_variables(t.ema_model))
     torch.backends.cudnn.deterministic = deterministic
@@ -732,8 +776,11 @@ def phase_train(dev, card):
 # (model name, config switches, output stride of its deferred logits: 1
 # for the models that end at full resolution, samples a step of its
 # card-against-CPU train run). FastSCNN, DDRNet and STDC port the TPU
-# configs of BASELINE.json #0 and #2; the backbone family runs at the JAX
-# registry's defaults (ResNet-18, or MobileNetV2 for LiteSeg and CANet)
+# configs of BASELINE.json #0 and #2; the others run at the JAX registry's
+# defaults: the backbone family on ResNet-18, or MobileNetV2 for LiteSeg
+# and CANet; PP-LiteSeg on its own STDC1; the InitialBlock-stem models,
+# MiniNetv2's logits at 1/2 and ERFNet's, ESNet's, FDDWNet's and FSSNet's
+# at full size
 ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('DDRNet-23-slim', dict(model='ddrnet', use_aux=True), 8, 4),
        ('STDC1', dict(model='stdc', use_aux=False, use_detail_head=True), 8,
@@ -745,18 +792,54 @@ ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('ShelfNet', dict(model='shelfnet', use_aux=False), 4, 4),
        ('LinkNet', dict(model='linknet', use_aux=False), 1, 4),
        ('LiteSeg', dict(model='liteseg', use_aux=False), 8, 16),
-       ('CANet', dict(model='canet', use_aux=False), 1, 16))
+       ('CANet', dict(model='canet', use_aux=False), 1, 16),
+       ('PP-LiteSeg', dict(model='ppliteseg', use_aux=False), 8, 4),
+       ('CFPNet', dict(model='cfpnet', use_aux=False), 8, 4),
+       ('DABNet', dict(model='dabnet', use_aux=False), 8, 4),
+       ('ERFNet', dict(model='erfnet', use_aux=False), 1, 4),
+       ('ESNet', dict(model='esnet', use_aux=False), 1, 4),
+       ('FDDWNet', dict(model='fddwnet', use_aux=False), 1, 4),
+       ('FSSNet', dict(model='fssnet', use_aux=False), 1, 4),
+       ('MiniNetv2', dict(model='mininetv2', use_aux=False), 2, 4))
+
+
+# (constructor switches, steps) of a model's card-against-CPU train run
+# where at its full depth and 3 steps float32 rounding alone goes beyond
+# the check's limits (see _zoo_card_vs_cpu); the others run 3 steps at
+# their registry defaults
+ZOO_SMALL_RUN = {'mininetv2': (dict(feat_dt=(1, 2)), 1)}
+
+
+# the zoo models whose train step torch.profiler reads: those new in this
+# slice (the earlier ones' profiles are in PERF.md from their slices; the
+# pass is dropped for them to keep the script near its time)
+PROFILED = ('PP-LiteSeg', 'CFPNet', 'DABNet', 'ERFNet', 'ESNet', 'FDDWNet',
+            'FSSNet', 'MiniNetv2')
 
 
 def zoo_small_config(kw, samples):
     """The config switches of a zoo model's card-against-CPU train run."""
+    steps = ZOO_SMALL_RUN.get(kw['model'], ({}, 3))[1]
     return dict(base_lr=1e-3,
                 weight_decay=0.5 if kw.get('use_detail_head') else 1e-4,
-                train_bs=samples, val_bs=samples, synthetic_len=3 * samples,
-                **kw)
+                train_bs=samples, val_bs=samples,
+                synthetic_len=steps * samples, **kw)
 
 
-def _zoo_card_vs_cpu(name, variables, kw, samples):
+def zoo_small_model(kw):
+    """The model builder of a zoo model's card-against-CPU train run: None
+    (the registry's, at the model's full depth), or, for the models of
+    ZOO_SMALL_RUN, one that builds the model at its cut depth."""
+    if kw['model'] not in ZOO_SMALL_RUN:
+        return None
+    cut = ZOO_SMALL_RUN[kw['model']][0]
+    from rtseg_tpu_torch.models.registry import _PLAIN
+    cls = _PLAIN[kw['model']]
+    return lambda cfg, device=None: cls(num_class=cfg.num_class,
+                                        device=device, **cut)
+
+
+def _zoo_card_vs_cpu(name, variables, kw, samples, build=None):
     """3 float32 steps at 64x128 of `samples` distinct samples each on the
     card (deterministic cuDNN) and on the CPU, at a peak LR of 1e-3 and,
     for STDC, a weight decay of 0.5, so that the decay of detail_conv,
@@ -773,8 +856,17 @@ def _zoo_card_vs_cpu(name, variables, kw, samples):
     themselves. STDC keeps 4: at 16 a sample's Dice denominator over the
     detail head's raw logits comes near 0, and the same two CPU runs
     parted its first-step loss by 2.7e-4 (zoo_check_spread.py; ROADMAP.md
-    Queue 3)."""
-    runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu'),
+    Queue 3).
+
+    MiniNetv2 runs one step with its depth cut (ZOO_SMALL_RUN, `build`).
+    Through its 30 depth-wise blocks float32 rounding grows until two CPU
+    runs from weights 1e-7 apart part its first-step loss by 3.4e-5 and
+    its weights by 1.09 after 3 steps of 4 samples. With two blocks at 1/8
+    (16 in all) they still part its weights by 5.1e-3-6.3e-3 after 3
+    steps of 4 samples and 2.7e-3-3.2e-3 of 16, and by 1.2e-4 after one
+    step of 4 (zoo_check_spread.py), the depth and step the tests hold to
+    the JAX package's (tests/test_torch_stem_train_steps.py)."""
+    runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu'), build,
                              **zoo_small_config(kw, samples))
     card, cpu = runs['cuda'], runs['cpu']
     first = _rel_loss(card[0][:1], cpu[0][:1])
@@ -791,7 +883,8 @@ def _zoo_card_vs_cpu(name, variables, kw, samples):
                  f'decay, card - CPU {float(np.abs(kc - kp).max()):.2e} '
                  f'(tolerance 1e-6)')
     say(f'zoo {name} small fp32 train, card (deterministic cuDNN) vs CPU, '
-        f'3 steps of {samples} samples: {card[0]} vs {cpu[0]}; first step {first:.2e} relative '
+        f'{len(card[0])} steps of {samples} samples: {card[0]} vs {cpu[0]}; '
+        f'first step {first:.2e} relative '
         f'(tolerance 1e-5), all steps {rel:.2e} (tolerance 1e-3); params+BN '
         f'statistics {dw[0]:.2e} ({dw[1]}), EMA {de[0]:.2e} ({de[1]}); '
         f'tolerance 1e-3 absolute and relative{extra}')
@@ -807,8 +900,9 @@ def _zoo_card_vs_cpu(name, variables, kw, samples):
 
 
 def phase_zoo(dev, card, eval_imgs, eval_msks):
-    """Each model of ZOO: SegTrainer(cfg).run() at 512x1024 bs16 bf16 (SGD
-    OneCycle, EMA, OHEM) for 1 epoch of 3 steps and a validation of 16
+    """Each model of ZOO: SegTrainer(cfg).run() from the trainer's default
+    weights (the initializers of Flax's model.init) at 512x1024 bs16 bf16
+    (SGD OneCycle, EMA, OHEM) for 1 epoch of 3 steps and a validation of 16
     images (then val_best's) through K1 and K2 with their launch counts;
     K1 and K2 on the EMA model's logits of a val batch against their plain
     versions; 3 float32 steps card vs CPU; the step's times, its profile,
@@ -825,12 +919,12 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
     launches = {'resize_argmax': 0, 'confusion_matrix': 0}
     out = {}
     for name, kw, stride, samples in ZOO:
+        t_model = time.perf_counter()
         tmp = tempfile.mkdtemp(prefix='chip_smoke_zoo_')
         try:
             cfg = _train_config(tmp, synthetic_len=3 * B, total_epoch=1,
                                 **kw)
-            variables = random_jax_variables(get_model(cfg), seed=1)
-            trainer = SegTrainer(cfg, variables=variables)
+            trainer = SegTrainer(cfg)
             n_val = len(trainer.val_loader)
             check(n_val == 1, f'{name}: {n_val} val batches')
             resize_argmax.launches = 0
@@ -887,8 +981,11 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         check(k2_equal, f'{name} K2 differs from its plain version')
         del low, preds
 
+        # the mapping check's draw (utils/convert.py), as in earlier runs
+        build = zoo_small_model(kw)
+        variables = random_jax_variables((build or get_model)(cfg), seed=1)
         cpu_first, cpu_rel, cpu_abs = _zoo_card_vs_cpu(
-            name, variables, kw, samples)
+            name, variables, kw, samples, build)
 
         # times: the train step on a resident train batch
         trainer.train_loader.set_epoch(0)
@@ -899,8 +996,9 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
               and ('loss_detail' in metrics) == bool(cfg.use_detail_head),
               f'{name} train step metrics {metrics}')
         step_ms, parts, peak, before = _step_times(trainer, cfg, imgs, msks)
-        profile = _profile_step(trainer.train_step, trainer.state, imgs, msks,
-                                label=f'zoo {name} train')
+        profile = _profile_step(trainer.train_step, trainer.state, imgs,
+                                msks, label=f'zoo {name} train') \
+            if name in PROFILED else None
         # the eval step at 1024x2048 and K1, K2 on the model's logits there
         step = build_eval_step(cfg, trainer.ema_model, dev)
         eval_ms = time_ms(lambda: step(eval_imgs, eval_msks), iters=5)
@@ -931,7 +1029,8 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
             f'before it); run() {wall:.3f} s cold; eval step at {H}x{W} '
             f'{eval_ms:.3f} ms = {B / eval_ms * 1e3:.2f} imgs/s; on its '
             f'logits {k1_text} (mismatch {rate:.3e} against the float32 '
-            f'plain version), K2 {k2_ms:.4f} ms (bit-equal)')
+            f'plain version), K2 {k2_ms:.4f} ms (bit-equal); this model\'s '
+            f'checks and times took {time.perf_counter() - t_model:.1f} s')
         out[name] = {'step_ms': step_ms, 'parts_ms': parts.tolist(),
                      'peak_bytes': peak, 'run_cold_s': wall,
                      'eval_ms': eval_ms, 'logits_stride': stride,
@@ -945,6 +1044,157 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
 
 
 # ------------------------------------------------------------------ phase 7
+_MOBILENET_V2_SETTINGS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+                          (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
+                          (6, 320, 1, 1))
+
+
+def torchvision_state_dict(backbone_type: str, seed: int) -> dict:
+    """A state_dict under torchvision's names and shapes for 'resnet18'
+    or 'mobilenet_v2', the classifier included, drawn from `seed`: conv
+    and linear weights normal, BatchNorm weights, biases and running
+    statistics uniform, so that no value repeats."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, out, cin, k):
+        sd[name] = rng.normal(0, 0.1, (out, cin, k, k))
+
+    def bn(name, c):
+        sd[f'{name}.weight'] = rng.uniform(0.5, 1.5, c)
+        sd[f'{name}.bias'] = rng.uniform(-0.5, 0.5, c)
+        sd[f'{name}.running_mean'] = rng.uniform(-0.5, 0.5, c)
+        sd[f'{name}.running_var'] = rng.uniform(0.5, 2.0, c)
+        sd[f'{name}.num_batches_tracked'] = np.array(100, np.int64)
+
+    if backbone_type == 'resnet18':
+        conv('conv1.weight', 64, 3, 7)
+        bn('bn1', 64)
+        cin = 64
+        for i, c in enumerate((64, 128, 256, 512), 1):
+            for j in range(2):
+                p = f'layer{i}.{j}'
+                conv(f'{p}.conv1.weight', c, cin, 3)
+                bn(f'{p}.bn1', c)
+                conv(f'{p}.conv2.weight', c, c, 3)
+                bn(f'{p}.bn2', c)
+                if j == 0 and i > 1:
+                    conv(f'{p}.downsample.0.weight', c, cin, 1)
+                    bn(f'{p}.downsample.1', c)
+                cin = c
+        sd['fc.weight'] = rng.normal(0, 0.1, (1000, 512))
+        sd['fc.bias'] = rng.uniform(-0.5, 0.5, 1000)
+    elif backbone_type == 'mobilenet_v2':
+        conv('features.0.0.weight', 32, 3, 3)
+        bn('features.0.1', 32)
+        cin, idx = 32, 1
+        for t, c, n, _ in _MOBILENET_V2_SETTINGS:
+            for _ in range(n):
+                p, hid = f'features.{idx}.conv', cin * t
+                if t == 1:
+                    conv(f'{p}.0.0.weight', hid, 1, 3)
+                    bn(f'{p}.0.1', hid)
+                    conv(f'{p}.1.weight', c, hid, 1)
+                    bn(f'{p}.2', c)
+                else:
+                    conv(f'{p}.0.0.weight', hid, cin, 1)
+                    bn(f'{p}.0.1', hid)
+                    conv(f'{p}.1.0.weight', hid, 1, 3)
+                    bn(f'{p}.1.1', hid)
+                    conv(f'{p}.2.weight', c, hid, 1)
+                    bn(f'{p}.3', c)
+                cin, idx = c, idx + 1
+        conv('features.18.0.weight', 1280, 320, 1)
+        bn('features.18.1', 1280)
+        sd['classifier.1.weight'] = rng.normal(0, 0.1, (1000, 1280))
+        sd['classifier.1.bias'] = rng.uniform(-0.5, 0.5, 1000)
+    else:
+        raise ValueError(f'no torchvision layout for {backbone_type}')
+    return {k: torch.from_numpy(np.asarray(
+        v, np.int64 if v.dtype == np.int64 else np.float32))
+        for k, v in sd.items()}
+
+
+def _by_value(tensors) -> dict:
+    """{(shape, bytes): count} of float tensors, so that two collections
+    can be compared as multisets of values whatever their names."""
+    out: dict = {}
+    for t in tensors:
+        t = t.detach().float().cpu().contiguous()
+        key = (tuple(t.shape), t.numpy().tobytes())
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+# (model, torchvision layout) of the import phase: the scope is
+# `backbone` in both
+IMPORTS = (('swiftnet', 'resnet18'), ('liteseg', 'mobilenet_v2'))
+
+
+def phase_import(dev):
+    """config.backbone_ckpt on the card: a random torchvision-named
+    state_dict for ResNet-18 and for MobileNetV2, written to a temp dir,
+    imported by SegTrainer into SwiftNet and LiteSeg. The backbone's
+    tensors, in the model and in its EMA, are the dict's feature tensors
+    (as multisets of values: torchvision's and the port's convs share the
+    OIHW layout; the classifier and BatchNorm's counters are not read),
+    and every other leaf keeps the trainer's Flax init."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.utils.convert import (_flatten, flax_init_variables,
+                                               to_jax_variables)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_import_')
+    try:
+        for model, layout in IMPORTS:
+            sd = torchvision_state_dict(layout, seed=2)
+            path = str(Path(tmp) / f'{layout}.pth')
+            torch.save(sd, path)
+            features = _by_value(
+                v for k, v in sd.items()
+                if not k.startswith(('fc.', 'classifier.', 'features.18.'))
+                and not k.endswith('num_batches_tracked'))
+            cfg = _train_config(tmp, model=model, use_aux=False,
+                                backbone_ckpt=path, backbone_type=layout,
+                                save_ckpt=False, load_ckpt=False)
+            t0 = time.perf_counter()
+            trainer = SegTrainer(cfg)
+            init_s = time.perf_counter() - t0
+            start = dict(_flatten(flax_init_variables(get_model(cfg),
+                                                      cfg.random_seed)))
+            n_rest = 0
+            for which, m in (('model', trainer.model),
+                             ('EMA', trainer.ema_model)):
+                check(next(m.parameters()).device.type == 'cuda',
+                      f'import {model}: {which} is not on the card')
+                held = _by_value(
+                    v for k, v in m.state_dict().items()
+                    if k.startswith('backbone.')
+                    and not k.endswith('num_batches_tracked'))
+                check(held == features,
+                      f'import {model}: the {which}\'s backbone does not '
+                      f'hold the {layout} dict\'s values')
+                got = dict(_flatten(to_jax_variables(m)))
+                rest = [k for k in start if k[1] != 'backbone']
+                for k in rest:
+                    check(np.array_equal(got[k], start[k]),
+                          f'import {model}: {which} {"/".join(k)} moved')
+                n_rest = len(rest)
+            n = sum(features.values())
+            say(f'import: {layout} state_dict ({len(sd)} tensors under '
+                f'torchvision\'s names) into {model}\'s backbone on the card: '
+                f'its {n} feature tensors are the backbone\'s, in the model '
+                f'and its EMA; the other {n_rest} leaves keep the Flax init; '
+                f'SegTrainer built in {init_s:.3f} s')
+            out[model] = {'layout': layout, 'tensors': n,
+                          'other_leaves': n_rest, 'init_s': init_s}
+            del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------------------ phase 8
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                 k2_err, sass):
     import torch.nn.functional as F
@@ -1008,6 +1258,21 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
     q_bound, q_by = bound_ms(xq.numel() * 2 + B * H * W * 4,
                              B * (H // 4) * C * W * 4 + B * H * W * C * 3)
     del xq
+    # MiniNetv2's 1/2-resolution logits: 16x the bytes in of 1/8, the same
+    # out, and one band about every two output rows
+    xh = torch.randn((B, H // 2, W // 2, C), generator=g, device=dev
+                     ).to(torch.bfloat16)
+    s2_rate = _rate(resize_argmax(xh, (H, W)),
+                    _argmax_ref(xh.float(), (H, W)))
+    check(s2_rate <= 1e-4, f'K1 output stride 2 mismatch {s2_rate}')
+    s2_ms = time_ms(lambda: resize_argmax(xh, (H, W)))
+    s2_plain = time_ms(lambda: _argmax_ref(xh, (H, W)), iters=5)
+    s2_lib = time_ms(lambda: F.interpolate(
+        xh.permute(0, 3, 1, 2), (H, W), mode='bilinear',
+        align_corners=True).argmax(1), iters=5)
+    s2_bound, s2_by = bound_ms(xh.numel() * 2 + B * H * W * 4,
+                               B * (H // 2) * C * W * 4 + B * H * W * C * 3)
+    del xh
 
     k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, msks, C, IGNORE))
     k2_plain = time_ms(lambda: confusion_matrix_plain(preds, msks, C, IGNORE),
@@ -1033,6 +1298,11 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
         f'argmax {q_lib:.4f}, bound {q_bound:.4f} ({q_by}), '
         f'{q_bound / q_ms:.1%} of the bound reached (mismatch {q_rate:.3e} '
         f'against the float32 plain version)')
+    say(f'times (ms): K1 at output stride 2 [{B},{H // 2},{W // 2},{C}] '
+        f'bf16 -> {H}x{W}: {s2_ms:.4f}, plain {s2_plain:.4f}, F.interpolate+'
+        f'argmax {s2_lib:.4f}, bound {s2_bound:.4f} ({s2_by}), '
+        f'{s2_bound / s2_ms:.1%} of the bound reached (mismatch '
+        f'{s2_rate:.3e} against the float32 plain version)')
     say(f'times (ms): K1 by class count at [{B},{h},{w},C] -> {H}x{W}: '
         + ', '.join(f'C={c} {t:.4f}' for c, t in by_c.items())
         + f'; {(by_c[C] - by_c[8]) / (C - 8) * 1e3:.2f} us a class from C=8 '
@@ -1078,6 +1348,10 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                          'plain_ms': q_plain, 'library_ms': q_lib,
                          'bound_ms': q_bound, 'bound_by': q_by,
                          'mismatch_bfloat16_vs_float32': q_rate},
+         'half_res': {'shape': [B, H // 2, W // 2, C], 'ms': s2_ms,
+                      'plain_ms': s2_plain, 'library_ms': s2_lib,
+                      'bound_ms': s2_bound, 'bound_by': s2_by,
+                      'mismatch_bfloat16_vs_float32': s2_rate},
          'sass_row_loop': sass},
         {'name': 'confusion_matrix_pallas', 'route': 'cuda',
          'source': 'rtseg_tpu_torch/ops/csrc/confusion_matrix.cu',
@@ -1099,18 +1373,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
+    start = time.perf_counter()
+
+    def elapsed(phase):
+        say(f'elapsed {time.perf_counter() - start:.1f} s at the end of '
+            f'phase {phase}')
+
     card, sass = phase_card_and_build()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
+    elapsed('1-3 (build, K1, K2)')
     trainer, imgs, msks, preds, launches, wall = phase_slice(dev)
+    elapsed('4 (eval slice)')
     train_launches, train = phase_train(dev, card)
+    elapsed('5 (train)')
     zoo_launches, zoo = phase_zoo(dev, card, imgs, msks)
+    elapsed('6 (zoo)')
+    imports = phase_import(dev)
     launches = {k: v + train_launches[k] + zoo_launches[k]
                 for k, v in launches.items()}
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass)
+    elapsed('7-8 (import, times)')
     say(json.dumps({'train': train}))
     say(json.dumps({'zoo': zoo}))
+    say(json.dumps({'import': imports}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,7 +11,11 @@ save_ckpt, run, train_one_epoch, validate, val_best).
     (with use_ema=False the EMA mirrors the weights exactly).
 
 Weights come from Flax-shaped variables (utils/convert.py): given by the
-caller, or drawn from config.random_seed; they seed the model and the EMA.
+caller, or drawn from config.random_seed with the initializers of Flax's
+`model.init` (`flax_init_variables`). With config.backbone_ckpt a local
+torchvision state_dict then replaces the backbone scope's weights
+(utils/torch_import.py), before the EMA copy is made and before a
+checkpoint is resumed. They seed the model and the EMA.
 Prediction to files, TensorBoard, segscope telemetry, profiling and the
 compile cache are later slices (ROADMAP.md).
 """
@@ -28,8 +32,9 @@ import torch
 
 from ..data import get_loader
 from ..models.registry import get_model
-from ..utils.convert import load_jax_variables, random_jax_variables
+from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
+from ..utils.torch_import import import_backbone
 from .checkpoint import (load_meta, restore_train_ckpt, restore_weights,
                          save_best_ckpt, save_train_ckpt)
 from .optim import get_optimizer
@@ -40,11 +45,12 @@ _INT32_MAX = np.iinfo(np.int32).max
 
 # config switches of the JAX trainer that the port does not implement yet,
 # with the ROADMAP.md item that brings each
-_NOT_PORTED = (('use_tb', 'TensorBoard logging', 'Queue 1 item 8 (obs/)'),
-               ('use_obs', 'segscope telemetry', 'Queue 1 item 8 (obs/)'),
-               ('profile_dir', 'the profiler trace', 'Queue 1 item 8 (obs/)'),
+_NOT_PORTED = (('use_tb', 'TensorBoard logging', 'Queue 1 item 12 (obs/)'),
+               ('use_obs', 'segscope telemetry', 'Queue 1 item 12 (obs/)'),
+               ('profile_dir', 'the profiler trace', 'Queue 1 item 12 (obs/)'),
                ('compile_cache', 'the compile cache',
-                'Queue 1 item 8 (warm/)'))
+                'Queue 1 item 12 (warm/)'),
+               ('remat', 'rematerialization', 'Queue 1 item 8'))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,8 +94,13 @@ class SegTrainer:
         self.train_loader, self.val_loader = get_loader(config, pin)
         model = get_model(config, device=self.device).eval()
         if variables is None:
-            variables = random_jax_variables(model, config.random_seed)
+            variables = flax_init_variables(model, config.random_seed)
         load_jax_variables(model, variables)
+        if config.backbone_ckpt:
+            scope = import_backbone(model, config.backbone_ckpt,
+                                    config.backbone_type)
+            self.logger.info(f'Imported pretrained backbone from '
+                             f'{config.backbone_ckpt} into {scope}')
         self.state = TrainState(step=0, model=model,
                                 optimizer=get_optimizer(config,
                                                         model.parameters()),

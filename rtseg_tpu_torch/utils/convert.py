@@ -174,3 +174,51 @@ def random_jax_variables(model: torch.nn.Module, seed: int) -> dict:
             a = rng.uniform(0.5, 1.5, shape)
         out[path] = a.astype(np.float32)
     return _nest(out)
+
+
+# Flax's lecun_normal: a normal truncated to [-2, 2], rescaled by the
+# standard deviation of that truncation so that the draw has variance
+# 1 / fan_in (jax.nn.initializers.variance_scaling, 'truncated_normal')
+_TRUNC_STD = 0.87962566103423978
+# the constant leaves of Flax's initializers: zero biases (conv, Dense and
+# BatchNorm), BatchNorm scale 1 with running statistics 0 and 1, and the
+# PReLU slope 0.25 (rtseg_tpu/nn/modules.py PReLU)
+_FLAX_CONSTANTS = {'bias': 0.0, 'scale': 1.0, 'mean': 0.0, 'var': 1.0,
+                   'alpha': 0.25}
+
+
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal values redrawn until all lie in [-2, 2]."""
+    a = rng.standard_normal(shape)
+    bad = np.abs(a) > 2.0
+    while bad.any():
+        a[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(a) > 2.0
+    return a
+
+
+def flax_init_variables(model: torch.nn.Module, seed: int) -> dict:
+    """Flax variables shaped for `model`, drawn with numpy from `seed` by
+    the initializers the JAX package's `model.init` uses: lecun-normal
+    kernels (variance 1 / fan_in, fan_in the product of all axes of the
+    Flax kernel but the last: a conv's kh*kw*in/groups, a transposed
+    conv's kh*kw*out, a Dense layer's in) and the constants of
+    `_FLAX_CONSTANTS`. A leaf of any other name raises: no initializer is
+    guessed. The draws follow the sorted Flax paths, so a seed gives the
+    same weights on every device."""
+    rng = np.random.default_rng(seed)
+    flat = _flatten(to_jax_variables(model))
+    out = {}
+    for path in sorted(flat):
+        shape = flat[path].shape
+        leaf = path[-1]
+        if leaf == 'kernel':
+            std = np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNC_STD
+            a = _truncated_normal(rng, shape) * std
+        elif leaf in _FLAX_CONSTANTS:
+            a = np.full(shape, _FLAX_CONSTANTS[leaf])
+        else:
+            raise KeyError(f'no Flax initializer known for '
+                           f'{"/".join(path)}')
+        out[path] = a.astype(np.float32)
+    return _nest(out)

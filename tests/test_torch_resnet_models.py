@@ -41,6 +41,16 @@ MODELS = {
     'linknet': (dict(model='linknet'), 1),
     'liteseg': (dict(model='liteseg'), 8),
     'canet': (dict(model='canet'), 1),
+    # PP-LiteSeg and the InitialBlock-stem models
+    # (tests/test_torch_ppliteseg.py, tests/test_torch_stem_models.py)
+    'ppliteseg': (dict(model='ppliteseg'), 8),
+    'cfpnet': (dict(model='cfpnet'), 8),
+    'dabnet': (dict(model='dabnet'), 8),
+    'mininetv2': (dict(model='mininetv2'), 2),
+    'erfnet': (dict(model='erfnet'), 1),
+    'esnet': (dict(model='esnet'), 1),
+    'fddwnet': (dict(model='fddwnet'), 1),
+    'fssnet': (dict(model='fssnet'), 1),
 }
 VARIANTS = ('bisenetv1', 'icnet_aux', 'icnet', 'swiftnet', 'farseenet',
             'shelfnet')
@@ -214,7 +224,7 @@ def test_registry_builds_the_backbone_family_and_refuses_the_rest():
     from rtseg_tpu_torch.models.backbone import Mobilenetv2, ResNet
     names = ('bisenetv1', 'icnet', 'swiftnet', 'farseenet', 'shelfnet',
              'linknet', 'liteseg', 'canet')
-    assert set(names) <= set(PORTED) and len(PORTED) == 12
+    assert set(names) <= set(PORTED) and len(PORTED) == 20
     for name in names:
         model = get_model(SegConfig(model=name, num_class=NC,
                                     use_aux=name == 'icnet'))

@@ -41,6 +41,16 @@ VARIANTS = {
     'linknet': dict(model='linknet'),
     'liteseg': dict(model='liteseg'),
     'canet': dict(model='canet'),
+    # PP-LiteSeg and the InitialBlock-stem models
+    # (tests/test_torch_ppliteseg.py, tests/test_torch_stem_train*.py)
+    'ppliteseg': dict(model='ppliteseg'),
+    'cfpnet': dict(model='cfpnet'),
+    'dabnet': dict(model='dabnet'),
+    'mininetv2': dict(model='mininetv2'),
+    'erfnet': dict(model='erfnet'),
+    'esnet': dict(model='esnet'),
+    'fddwnet': dict(model='fddwnet'),
+    'fssnet': dict(model='fssnet'),
 }
 PORT_ONLY = dict(use_tb=False, use_obs=False, base_workers=0)
 

@@ -167,7 +167,7 @@ def test_registry_dispatch_and_refusals():
         with pytest.raises(NotImplementedError, match='hires_remat'):
             get_model(SegConfig(model=name, num_class=NC, use_aux=False,
                                 hires_remat=True))
-    for name in ('enet', 'segnet', 'ppliteseg'):
+    for name in ('enet', 'segnet', 'cgnet'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             get_model(SegConfig(model=name, num_class=NC, use_aux=False))
 

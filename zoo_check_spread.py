@@ -4,7 +4,8 @@ chip_smoke.py holds 3 float32 train steps of each zoo model on the card
 against the CPU path: the first step's loss within 1e-5 relative, every
 step's within 1e-3 and the weights within 1e-3. The check can tell a card
 fault from float32 rounding only where rounding alone stays well inside
-those limits. This script measures that on the CPU: the same 3 steps from
+those limits. This script measures that on the CPU: the same steps (3, or as
+chip_smoke.ZOO_SMALL_RUN sets them) from
 the zoo's seeded weights, and from those weights times (1 + 1e-7 x
 standard normal noise), about one float32 rounding, and prints one JSON
 line a draw with how far the two runs part (largest relative difference
@@ -12,8 +13,9 @@ of the losses, largest absolute difference of the weights).
 
     python3 zoo_check_spread.py liteseg:4 liteseg:16 stdc:16
 
-Each argument names a model of chip_smoke.ZOO and the samples a step.
-Runs on the CPU; no card needed.
+Each argument names a model of chip_smoke.ZOO and the samples a step; a
+model of chip_smoke.ZOO_SMALL_RUN runs at the depth and for the steps the
+check cuts it to. Runs on the CPU; no card needed.
 """
 
 from __future__ import annotations
@@ -36,16 +38,17 @@ DRAWS = 2
 def spread(kw: dict, samples: int):
     """Yield, a draw, how far the CPU run from perturbed weights parts
     from the CPU run from the zoo's weights."""
+    build = cs.zoo_small_model(kw)
     variables = random_jax_variables(
-        get_model(cs._train_config('unused', **kw)), seed=1)
+        (build or get_model)(cs._train_config('unused', **kw)), seed=1)
     config = cs.zoo_small_config(kw, samples)
-    ref = cs._card_vs_cpu_runs(variables, ('cpu',), **config)['cpu']
+    ref = cs._card_vs_cpu_runs(variables, ('cpu',), build, **config)['cpu']
     for seed in range(DRAWS):
         rs = np.random.RandomState(seed)
         near = _nest({k: (v * (1 + 1e-7 * rs.standard_normal(v.shape))
                           ).astype(np.float32)
                       for k, v in _flatten(variables).items()})
-        run = cs._card_vs_cpu_runs(near, ('cpu',), **config)['cpu']
+        run = cs._card_vs_cpu_runs(near, ('cpu',), build, **config)['cpu']
         weights = max(cs._same_weights(run[1], ref[1], math.inf),
                       cs._same_weights(run[2], ref[2], math.inf))
         yield {'model': kw['model'], 'samples': samples, 'draw': seed,
