@@ -38,22 +38,24 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. zoo: for FastSCNN, DDRNet-23-slim (aux head), STDC1 (detail head),
      the backbone family, BiSeNetv1, ICNet (aux heads), SwiftNet,
      FarSeeNet, ShelfNet, LinkNet (ResNet-18), LiteSeg and CANet
-     (MobileNetV2), PP-LiteSeg, and the InitialBlock-stem models CFPNet,
-     DABNet, ERFNet, ESNet, FDDWNet, FSSNet and MiniNetv2,
+     (MobileNetV2), PP-LiteSeg, the InitialBlock-stem models CFPNet,
+     DABNet, ERFNet, ESNet, FDDWNet, FSSNet and MiniNetv2, and the ten
+     models that need no new op, SQNet, EDANet, ADSCNet, ContextNet,
+     FPENet, ESPNet, ESPNetv2, CGNet, RegSeg and DFANet,
      SegTrainer(cfg).run() from the trainer's default (Flax) init at
      512x1024 bs16 bf16 (OHEM, SGD under OneCycle, EMA) for 1 epoch of 3
      steps with its validation and val_best() through K1 and K2 (launch
      counts read around the run: the logits of LinkNet, CANet, ERFNet,
-     ESNet, FDDWNet and FSSNet come at full resolution, so they launch K1
-     no time and K2 once a val batch); K1 and K2 on the EMA model's
-     logits of the val batch against their plain versions; 3 float32
-     train steps of 4 distinct samples (16 for the MobileNetV2 models;
-     MiniNetv2 one step with its depth cut) on the card (deterministic
-     cuDNN) against the CPU path at 64x128, with STDC's detail_conv (no
-     gradient) moved by weight decay as on the CPU; the train step's
-     time, split and peak memory, and the profile of the models new in
-     this slice (PROFILED); the eval step at 1024x2048 and K1, K2 timed
-     on each model's logits there
+     ESNet, FDDWNet, FSSNet, SQNet, ADSCNet and ESPNet come at full
+     resolution, so they launch K1 no time and K2 once a val batch); K1
+     and K2 on the EMA model's logits of the val batch against their
+     plain versions; float32 train steps on the card (deterministic
+     cuDNN) against the CPU path at 64x128 (3 steps of 4 distinct
+     samples, or as `ZOO` and `ZOO_SMALL_RUN` set them), with STDC's
+     detail_conv (no gradient) moved by weight decay as on the CPU; the
+     train step's time, split and peak memory, and the profile of the
+     models new in this slice (PROFILED); the eval step at 1024x2048 and
+     K1, K2 timed on each model's logits there
   7. import: a random torchvision-named ResNet-18 and MobileNetV2
      state_dict, written to a temp dir, imported through
      config.backbone_ckpt by SegTrainer on the card into SwiftNet and
@@ -68,7 +70,7 @@ Phases (each prints its own lines; any failure exits non-zero):
   9. the {"train": ...}, {"zoo": ...} and {"import": ...} lines, and the
      {"kernels": [...]} line, whose launch counts are those of the eval
      slice (phase 4), the train run (phase 5) and the zoo's runs (phase 6)
-     together;
+     together, checked exactly: K1 46, K2 64;
   10. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -780,7 +782,11 @@ def phase_train(dev, card):
 # defaults: the backbone family on ResNet-18, or MobileNetV2 for LiteSeg
 # and CANet; PP-LiteSeg on its own STDC1; the InitialBlock-stem models,
 # MiniNetv2's logits at 1/2 and ERFNet's, ESNet's, FDDWNet's and FSSNet's
-# at full size
+# at full size; the ten models that need no new op, SQNet's, ADSCNet's
+# and ESPNet's logits at full size, ContextNet's and FPENet's at 1/2,
+# RegSeg's and DFANet's at 1/4, EDANet's, ESPNetv2's and CGNet's at 1/8
+# (CGNet's, RegSeg's and DFANet's float32: their Dense gates promote the
+# bf16 maps, as Flax's do)
 ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('DDRNet-23-slim', dict(model='ddrnet', use_aux=True), 8, 4),
        ('STDC1', dict(model='stdc', use_aux=False, use_detail_head=True), 8,
@@ -800,21 +806,37 @@ ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('ESNet', dict(model='esnet', use_aux=False), 1, 4),
        ('FDDWNet', dict(model='fddwnet', use_aux=False), 1, 4),
        ('FSSNet', dict(model='fssnet', use_aux=False), 1, 4),
-       ('MiniNetv2', dict(model='mininetv2', use_aux=False), 2, 4))
+       ('MiniNetv2', dict(model='mininetv2', use_aux=False), 2, 4),
+       ('SQNet', dict(model='sqnet', use_aux=False), 1, 4),
+       ('EDANet', dict(model='edanet', use_aux=False), 8, 4),
+       ('ADSCNet', dict(model='adscnet', use_aux=False), 1, 4),
+       ('ContextNet', dict(model='contextnet', use_aux=False), 2, 16),
+       ('FPENet', dict(model='fpenet', use_aux=False), 2, 4),
+       ('ESPNet', dict(model='espnet', use_aux=False), 1, 4),
+       ('ESPNetv2', dict(model='espnetv2', use_aux=False), 8, 4),
+       ('CGNet', dict(model='cgnet', use_aux=False), 8, 4),
+       ('RegSeg', dict(model='regseg', use_aux=False), 4, 4),
+       ('DFANet', dict(model='dfanet', use_aux=False), 4, 16))
 
 
 # (constructor switches, steps) of a model's card-against-CPU train run
 # where at its full depth and 3 steps float32 rounding alone goes beyond
 # the check's limits (see _zoo_card_vs_cpu); the others run 3 steps at
 # their registry defaults
-ZOO_SMALL_RUN = {'mininetv2': (dict(feat_dt=(1, 2)), 1)}
+ZOO_SMALL_RUN = {'mininetv2': (dict(feat_dt=(1, 2)), 1),
+                 'fpenet': ({}, 1), 'regseg': ({}, 1),
+                 'dfanet': (dict(repeat_times=(1, 1, 1)), 1)}
+
+# the models whose card-against-CPU run starts from Flax's initializers
+# (the trainer's default weights) instead of the mapping check's draw
+ZOO_FLAX_INIT = ('dfanet',)
 
 
 # the zoo models whose train step torch.profiler reads: those new in this
 # slice (the earlier ones' profiles are in PERF.md from their slices; the
 # pass is dropped for them to keep the script near its time)
-PROFILED = ('PP-LiteSeg', 'CFPNet', 'DABNet', 'ERFNet', 'ESNet', 'FDDWNet',
-            'FSSNet', 'MiniNetv2')
+PROFILED = ('SQNet', 'EDANet', 'ADSCNet', 'ContextNet', 'FPENet', 'ESPNet',
+            'ESPNetv2', 'CGNet', 'RegSeg', 'DFANet')
 
 
 def zoo_small_config(kw, samples):
@@ -824,6 +846,17 @@ def zoo_small_config(kw, samples):
                 weight_decay=0.5 if kw.get('use_detail_head') else 1e-4,
                 train_bs=samples, val_bs=samples,
                 synthetic_len=steps * samples, **kw)
+
+
+def zoo_small_variables(kw, model):
+    """The weights a zoo model's card-against-CPU train run starts from:
+    the mapping check's draw (utils/convert.py), as in earlier runs, or,
+    for the models of ZOO_FLAX_INIT, Flax's initializers."""
+    from rtseg_tpu_torch.utils.convert import (flax_init_variables,
+                                               random_jax_variables)
+    if kw['model'] in ZOO_FLAX_INIT:
+        return flax_init_variables(model, seed=1)
+    return random_jax_variables(model, seed=1)
 
 
 def zoo_small_model(kw):
@@ -865,7 +898,22 @@ def _zoo_card_vs_cpu(name, variables, kw, samples, build=None):
     (16 in all) they still part its weights by 5.1e-3-6.3e-3 after 3
     steps of 4 samples and 2.7e-3-3.2e-3 of 16, and by 1.2e-4 after one
     step of 4 (zoo_check_spread.py), the depth and step the tests hold to
-    the JAX package's (tests/test_torch_stem_train_steps.py)."""
+    the JAX package's (tests/test_torch_stem_train_steps.py).
+
+    Three of the ten models that need no new op run one step, as the same
+    two CPU runs say (zoo_check_spread.py): FPENet's weights part by
+    4.6e-4-5.2e-4 after 3 steps of 4 samples (2.6e-4-3.1e-4 of 16) and by
+    6.4e-6-9.2e-6 after one; RegSeg's by 3.5e-3 after 3 of 4 (6.7e-4-1.0e-3
+    of 16) and by 8.7e-6-4.1e-5 after one. ContextNet takes 16 samples a
+    step: at 4 its weights part by 1.9e-4-3.9e-4 after 3 steps, at 16 by
+    7.5e-6-8.6e-6. DFANet's float32 run at random weights is chaotic at
+    its full depth: its 1x1 FC attention maps give BatchNorms 4 values a
+    channel, and its statistics part by 2.4e21 after 3 steps of 4. It runs
+    one step of 16 samples with one block a stage (ZOO_SMALL_RUN) from
+    Flax's initializers (ZOO_FLAX_INIT): its stem kernel parts by
+    2.3e-5-2.4e-5 there, and from the mapping check's draw by
+    5.0e-4-1.7e-3; 3 steps there part by 6.2e-3-7.8e-3, one step at full
+    depth by 3.4e-2."""
     runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu'), build,
                              **zoo_small_config(kw, samples))
     card, cpu = runs['cuda'], runs['cpu']
@@ -914,7 +962,6 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
                                                     confusion_matrix_plain)
     from rtseg_tpu_torch.train import SegTrainer, build_eval_step
-    from rtseg_tpu_torch.utils.convert import random_jax_variables
 
     launches = {'resize_argmax': 0, 'confusion_matrix': 0}
     out = {}
@@ -981,9 +1028,8 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         check(k2_equal, f'{name} K2 differs from its plain version')
         del low, preds
 
-        # the mapping check's draw (utils/convert.py), as in earlier runs
         build = zoo_small_model(kw)
-        variables = random_jax_variables((build or get_model)(cfg), seed=1)
+        variables = zoo_small_variables(kw, (build or get_model)(cfg))
         cpu_first, cpu_rel, cpu_abs = _zoo_card_vs_cpu(
             name, variables, kw, samples, build)
 
@@ -1392,6 +1438,12 @@ def main() -> int:
     imports = phase_import(dev)
     launches = {k: v + train_launches[k] + zoo_launches[k]
                 for k, v in launches.items()}
+    # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
+    # zoo model (K1 only for those with low-resolution logits)
+    want = {'resize_argmax': 6 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
+            'confusion_matrix': 6 + 2 * len(ZOO)}
+    check(want == {'resize_argmax': 46, 'confusion_matrix': 64}
+          and launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass)
     elapsed('7-8 (import, times)')

@@ -1,15 +1,23 @@
+from .adscnet import ADSCNet
 from .bisenetv1 import BiSeNetv1
 from .bisenetv2 import BiSeNetv2
 from .canet import CANet
 from .cfpnet import CFPNet
+from .cgnet import CGNet
+from .contextnet import ContextNet
 from .dabnet import DABNet
 from .ddrnet import DDRNet
+from .dfanet import DFANet
+from .edanet import EDANet
 from .enet import InitialBlock
 from .erfnet import ERFNet
 from .esnet import ESNet
+from .espnet import ESPNet
+from .espnetv2 import ESPNetv2
 from .farseenet import FarSeeNet
 from .fastscnn import FastSCNN
 from .fddwnet import FDDWNet
+from .fpenet import FPENet
 from .fssnet import FSSNet
 from .icnet import ICNet
 from .linknet import LinkNet
@@ -17,12 +25,15 @@ from .liteseg import LiteSeg
 from .mininetv2 import MiniNetv2
 from .pp_liteseg import PPLiteSeg
 from .registry import PORTED, get_model
+from .regseg import RegSeg
 from .shelfnet import ShelfNet
+from .sqnet import SQNet
 from .stdc import STDC
 from .swiftnet import SwiftNet
 
-__all__ = ['BiSeNetv1', 'BiSeNetv2', 'CANet', 'CFPNet', 'DABNet', 'DDRNet',
-           'ERFNet', 'ESNet', 'FarSeeNet', 'FastSCNN', 'FDDWNet', 'FSSNet',
-           'ICNet', 'InitialBlock', 'LinkNet', 'LiteSeg', 'MiniNetv2',
-           'PORTED', 'PPLiteSeg', 'ShelfNet', 'STDC', 'SwiftNet',
-           'get_model']
+__all__ = ['ADSCNet', 'BiSeNetv1', 'BiSeNetv2', 'CANet', 'CFPNet', 'CGNet',
+           'ContextNet', 'DABNet', 'DDRNet', 'DFANet', 'EDANet', 'ERFNet',
+           'ESNet', 'ESPNet', 'ESPNetv2', 'FarSeeNet', 'FastSCNN', 'FDDWNet',
+           'FPENet', 'FSSNet', 'ICNet', 'InitialBlock', 'LinkNet', 'LiteSeg',
+           'MiniNetv2', 'PORTED', 'PPLiteSeg', 'RegSeg', 'ShelfNet', 'SQNet',
+           'STDC', 'SwiftNet', 'get_model']

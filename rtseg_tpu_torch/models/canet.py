@@ -11,17 +11,17 @@ eval step takes its identity-size argmax.
 
 Flax's Dense promotes its bf16 input to its float32 parameters, so with
 bf16 activations the channel gate, and with it everything after the
-gating product, runs in float32, as here: `ca_fc` computes in float32 and
-the product of a bf16 map with the float32 gate is float32.
+gating product, runs in float32, as here: `ca_fc` computes in float32
+(`nn/modules.py::dense`) and the product of a bf16 map with the float32
+gate is float32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..nn import ConvBNAct, DeConvBNAct
+from ..nn import ConvBNAct, DeConvBNAct, dense
 from ..ops.pool import adaptive_max_pool_nchw, global_avg_pool_nchw
 from .backbone import build_backbone
 
@@ -71,11 +71,8 @@ class FeatureCrossAttentionModule(nn.Module):
 
     def forward(self, x_s, x_c):
         sa = self.ConvBNAct_0(x_s)
-        fc = self.ca_fc
-        g_max = F.linear(adaptive_max_pool_nchw(x_c, 1).flatten(1).float(),
-                         fc.weight, fc.bias)
-        g_avg = F.linear(global_avg_pool_nchw(x_c).flatten(1).float(),
-                         fc.weight, fc.bias)
+        g_max = dense(adaptive_max_pool_nchw(x_c, 1).flatten(1), self.ca_fc)
+        g_avg = dense(global_avg_pool_nchw(x_c).flatten(1), self.ca_fc)
         ca = torch.sigmoid(g_max + g_avg)[:, :, None, None]
         x = self.ConvBNAct_1(torch.cat([x_s, x_c], dim=1))
         return self.ConvBNAct_2(x * sa * ca + x)

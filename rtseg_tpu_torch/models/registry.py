@@ -1,9 +1,10 @@
 """Model registry of the port (counterpart of rtseg_tpu/models/registry.py).
 
-Ported: BiSeNetv1, BiSeNetv2, CANet, CFPNet, DABNet, DDRNet, ERFNet,
-ESNet, FarSeeNet, FastSCNN, FDDWNet, FSSNet, ICNet, LinkNet, LiteSeg,
-MiniNetv2, PP-LiteSeg, ShelfNet, STDC and SwiftNet, each at its JAX
-registry defaults. Every other name of the JAX zoo raises
+Ported: ADSCNet, BiSeNetv1, BiSeNetv2, CANet, CFPNet, CGNet, ContextNet,
+DABNet, DDRNet, DFANet, EDANet, ERFNet, ESNet, ESPNet, ESPNetv2,
+FarSeeNet, FastSCNN, FDDWNet, FPENet, FSSNet, ICNet, LinkNet, LiteSeg,
+MiniNetv2, PP-LiteSeg, RegSeg, ShelfNet, SQNet, STDC and SwiftNet, each at
+its JAX registry defaults. Every other name of the JAX zoo raises
 NotImplementedError, and ROADMAP.md holds the order in which they come.
 Aux heads are built only for the aux models and the detail head only for
 the detail models; asking either of another model raises ValueError.
@@ -11,34 +12,47 @@ the detail models; asking either of another model raises ValueError.
 
 from __future__ import annotations
 
+from .adscnet import ADSCNet
 from .bisenetv1 import BiSeNetv1
 from .bisenetv2 import BiSeNetv2
 from .canet import CANet
 from .cfpnet import CFPNet
+from .cgnet import CGNet
+from .contextnet import ContextNet
 from .dabnet import DABNet
 from .ddrnet import DDRNet
+from .dfanet import DFANet
+from .edanet import EDANet
 from .erfnet import ERFNet
 from .esnet import ESNet
+from .espnet import ESPNet
+from .espnetv2 import ESPNetv2
 from .farseenet import FarSeeNet
 from .fastscnn import FastSCNN
 from .fddwnet import FDDWNet
+from .fpenet import FPENet
 from .fssnet import FSSNet
 from .icnet import ICNet
 from .linknet import LinkNet
 from .liteseg import LiteSeg
 from .mininetv2 import MiniNetv2
 from .pp_liteseg import PPLiteSeg
+from .regseg import RegSeg
 from .shelfnet import ShelfNet
+from .sqnet import SQNet
 from .stdc import STDC
 from .swiftnet import SwiftNet
 
 # the models built from num_class alone
-_PLAIN = {'bisenetv1': BiSeNetv1, 'canet': CANet, 'cfpnet': CFPNet,
-          'dabnet': DABNet, 'erfnet': ERFNet, 'esnet': ESNet,
-          'farseenet': FarSeeNet, 'fastscnn': FastSCNN, 'fddwnet': FDDWNet,
+_PLAIN = {'adscnet': ADSCNet, 'bisenetv1': BiSeNetv1, 'canet': CANet,
+          'cfpnet': CFPNet, 'cgnet': CGNet, 'contextnet': ContextNet,
+          'dabnet': DABNet, 'dfanet': DFANet, 'edanet': EDANet,
+          'erfnet': ERFNet, 'esnet': ESNet, 'espnet': ESPNet,
+          'espnetv2': ESPNetv2, 'farseenet': FarSeeNet,
+          'fastscnn': FastSCNN, 'fddwnet': FDDWNet, 'fpenet': FPENet,
           'fssnet': FSSNet, 'linknet': LinkNet, 'liteseg': LiteSeg,
-          'mininetv2': MiniNetv2, 'shelfnet': ShelfNet,
-          'swiftnet': SwiftNet}
+          'mininetv2': MiniNetv2, 'regseg': RegSeg, 'shelfnet': ShelfNet,
+          'sqnet': SQNet, 'swiftnet': SwiftNet}
 PORTED = tuple(sorted(('bisenetv2', 'ddrnet', 'icnet', 'ppliteseg', 'stdc')
                       + tuple(_PLAIN)))
 AUX_MODELS = ('bisenetv2', 'ddrnet', 'icnet')

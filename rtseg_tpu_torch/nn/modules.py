@@ -88,6 +88,14 @@ class Activation(nn.Module):
         return ACTIVATIONS[self.act](x)
 
 
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer` applied as Flax's Dense without a `dtype`: the input and the
+    parameters promoted to their common type, so a bf16 input to float32
+    parameters gives a float32 output."""
+    t = torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(t), layer.weight.to(t), layer.bias.to(t))
+
+
 # ------------------------------------------------------------------------- BN
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
@@ -95,7 +103,7 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      running_var: torch.Tensor, eps: float = 1e-5,
                      momentum: float = 0.9) -> torch.Tensor:
     """Train-mode BatchNorm over NCHW `x`, as Flax computes it: float32
-    batch statistics E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased
+    (float64 for a float64 input) batch statistics E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased
     variance), which both normalize `x` and update the running statistics
     in place, ra = momentum * ra + (1 - momentum) * batch. Returns the
     input's type.
@@ -104,7 +112,7 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
     (n / (n - 1) larger), which at the 1/32-resolution aux heads of a small
     batch (a few values a channel) moves the statistics by tens of
     percent."""
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = (0, 2, 3)
     mean = xf.mean(dims)
     var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)

@@ -65,7 +65,7 @@ def save_train_ckpt(path: str, state: TrainState, cur_epoch: int,
         'step': int(state.step),
         'variables': _as_tensors(to_jax_variables(state.model)),
         'ema_variables': _as_tensors(to_jax_variables(state.ema_model)),
-        'momentum': _as_tensors(state_dict_to_flax(momentum)),
+        'momentum': _as_tensors(state_dict_to_flax(momentum, state.model)),
     }
     _write(path, payload, {'cur_epoch': cur_epoch,
                            'best_score': float(best_score), 'kind': 'train'})
@@ -93,7 +93,7 @@ def restore_train_ckpt(path: str, state: TrainState) -> Tuple[int, float]:
     payload = _read(path)
     load_jax_variables(state.model, payload['variables'])
     load_jax_variables(state.ema_model, payload['ema_variables'])
-    buffers = from_jax_variables(payload['momentum'])
+    buffers = from_jax_variables(payload['momentum'], state.model)
     for name, p in state.model.named_parameters():
         if name in buffers:
             state.optimizer.state[p]['momentum_buffer'] = \

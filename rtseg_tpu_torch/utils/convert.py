@@ -1,62 +1,87 @@
 """Weights between the JAX package's Flax variables and the port's modules.
 
-The port's modules carry the Flax scope names, so a Flax leaf path maps to
-a state_dict key mechanically:
+The port's modules carry the Flax scope names, so the scope of a Flax leaf
+is the name of the torch module that holds its tensor (`named_modules()`),
+and the rule that maps the leaf is keyed on that module's type alone:
 
-  params/<scope...>/conv/kernel     -> <scope...>.conv.weight
-                  HWIO (kh, kw, in/g, out) -> OIHW (out, in/g, kh, kw)
-  params/<scope...>/conv/bias       -> <scope...>.conv.bias
-  params/<scope...>/bn/scale        -> <scope...>.bn.weight
-  params/<scope...>/bn/bias         -> <scope...>.bn.bias
-  batch_stats/<scope...>/bn/mean    -> <scope...>.bn.running_mean
-  batch_stats/<scope...>/bn/var     -> <scope...>.bn.running_var
-  params/<scope...>/prelu/alpha     -> <scope...>.prelu.weight
-  params/<scope...>/deconv/kernel   -> <scope...>.deconv.weight
-          Flax ConvTranspose(transpose_kernel=True) (kh, kw, out, in)
-          -> torch ConvTranspose2d (in, out, kh, kw)
-  params/<scope...>/deconv/bias     -> <scope...>.deconv.bias
-  params/<scope...>/ca_fc/kernel    -> <scope...>.ca_fc.weight
-                  Dense (in, out) -> Linear (out, in)   (CANet's ca_fc)
-  params/<scope...>/ca_fc/bias      -> <scope...>.ca_fc.bias
+  nn.Conv2d           params/kernel (kh, kw, in/g, out)
+                          -> weight (out, in/g, kh, kw)
+  nn.ConvTranspose2d  params/kernel (kh, kw, out, in) of Flax's
+                      ConvTranspose(transpose_kernel=True)
+                          -> weight (in, out, kh, kw)
+  nn.Linear           params/kernel (in, out) of a Dense -> weight (out, in)
+  those three         params/bias -> bias
+  nn.BatchNorm2d      params/scale, params/bias -> weight, bias
+                      batch_stats/mean, batch_stats/var
+                          -> running_mean, running_var
+  PReLU (nn/modules)  params/alpha -> weight
 
 Variables are nested dicts of numpy arrays ({'params': ..., 'batch_stats':
-...}), so no JAX is needed on either side. Loading is strict in both
-directions: a Flax leaf without a rule, or a module tensor that no leaf
-fills, raises. BatchNorm's `num_batches_tracked` counter has no Flax leaf
-and is set to 0.
+...}), so no JAX is needed on either side. The functions that map a tree
+take the model beside it, to read the module types from.
+Mapping is strict in both directions: a Flax leaf whose scope names no
+module, whose module has a type without a rule, or whose leaf name the
+rule lacks raises; so does a kernel of another rank than its module's,
+and a module tensor that no leaf fills. BatchNorm's `num_batches_tracked`
+counter has no Flax leaf and is set to 0.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-# (collection, module name, flax leaf) -> torch leaf
-_TO_TORCH = {
-    ('params', 'conv', 'kernel'): 'weight',
-    ('params', 'conv', 'bias'): 'bias',
-    ('params', 'bn', 'scale'): 'weight',
-    ('params', 'bn', 'bias'): 'bias',
-    ('batch_stats', 'bn', 'mean'): 'running_mean',
-    ('batch_stats', 'bn', 'var'): 'running_var',
-    ('params', 'prelu', 'alpha'): 'weight',
-    ('params', 'deconv', 'kernel'): 'weight',
-    ('params', 'deconv', 'bias'): 'bias',
-    ('params', 'ca_fc', 'kernel'): 'weight',
-    ('params', 'ca_fc', 'bias'): 'bias',
-}
-# module name -> (rank of its kernel, Flax -> torch axis order); the
-# inverse order maps back. A conv's HWIO and a transposed conv's
-# (kh, kw, out, in) both take (3, 2, 0, 1); each keeps its own rule
-_KERNELS = {
-    'conv': (4, (3, 2, 0, 1)),          # HWIO -> OIHW
-    'deconv': (4, (3, 2, 0, 1)),        # (kh, kw, out, in) -> (in, out, kh, kw)
-    'ca_fc': (2, (1, 0)),               # (in, out) -> (out, in)
-}
-_TO_FLAX = {(mod, t): (coll, f) for (coll, mod, f), t in _TO_TORCH.items()}
+_CONV = {('params', 'kernel'): ('weight', (3, 2, 0, 1)),
+         ('params', 'bias'): ('bias', None)}
+_LINEAR = {('params', 'kernel'): ('weight', (1, 0)),
+           ('params', 'bias'): ('bias', None)}
+_BN = {('params', 'scale'): ('weight', None),
+       ('params', 'bias'): ('bias', None),
+       ('batch_stats', 'mean'): ('running_mean', None),
+       ('batch_stats', 'var'): ('running_var', None)}
+
+
+@lru_cache(maxsize=None)
+def _rules() -> Dict[type, dict]:
+    """module type -> {(collection, Flax leaf): (torch tensor, Flax ->
+    torch axis order of a kernel, whose length is its rank; the inverse
+    order maps back)}. A conv's HWIO and a transposed conv's
+    (kh, kw, out, in) both take (3, 2, 0, 1). Built at first use: the
+    port's modules import the package that holds this converter."""
+    from ..nn.modules import PReLU
+    return {nn.Conv2d: _CONV, nn.ConvTranspose2d: _CONV, nn.Linear: _LINEAR,
+            nn.BatchNorm2d: _BN, PReLU: {('params', 'alpha'): ('weight',
+                                                               None)}}
+
+
+@lru_cache(maxsize=None)
+def _to_flax() -> Dict[type, dict]:
+    """module type -> {torch tensor: ((collection, Flax leaf), order)}."""
+    return {t: {name: (key, order) for key, (name, order) in rule.items()}
+            for t, rule in _rules().items()}
+
+
 _TORCH_ONLY = 'num_batches_tracked'
+
+
+def _module_types(model: nn.Module) -> Dict[str, type]:
+    """The type of each module of `model`, keyed by its dotted name."""
+    return {name: type(m) for name, m in model.named_modules()}
+
+
+def _rule(types: Mapping[str, type], scope: str, table: dict, what: str):
+    """The rule of the module named `scope`, or KeyError naming `what`."""
+    if scope not in types:
+        raise KeyError(f'{what}: no module named {scope!r}')
+    rule = table.get(types[scope])
+    if rule is None:
+        raise KeyError(f'{what}: unknown module type '
+                       f'{types[scope].__name__} at {scope!r}')
+    return rule
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -80,24 +105,30 @@ def _nest(flat: Mapping[Tuple[str, ...], np.ndarray]) -> dict:
     return out
 
 
-def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax variables -> the port's state_dict (CPU float32 tensors)."""
+def from_jax_variables(variables: Mapping, model: nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax variables -> the state_dict of `model`, as CPU float32
+    tensors."""
+    types = _module_types(model)
     sd = {}
     for path, v in _flatten(variables).items():
+        name = '/'.join(path)
         if len(path) < 3:
-            raise KeyError(f'unmapped Flax leaf {"/".join(path)}')
-        coll, mod, leaf = path[0], path[-2], path[-1]
-        rule = _TO_TORCH.get((coll, mod, leaf))
-        if rule is None:
-            raise KeyError(f'unmapped Flax leaf {"/".join(path)}')
-        if leaf == 'kernel':
-            rank, order = _KERNELS[mod]
-            if v.ndim != rank:
-                raise ValueError(f'{"/".join(path)}: expected a {rank}-D '
-                                 f'{mod} kernel, got shape {v.shape}')
+            raise KeyError(f'unmapped Flax leaf {name}')
+        coll, scope, leaf = path[0], '.'.join(path[1:-1]), path[-1]
+        rule = _rule(types, scope, _rules(), f'unmapped Flax leaf {name}')
+        if (coll, leaf) not in rule:
+            raise KeyError(f'unmapped Flax leaf {name}: a '
+                           f'{types[scope].__name__} has no such leaf')
+        tensor, order = rule[(coll, leaf)]
+        if order is not None:
+            if v.ndim != len(order):
+                raise ValueError(f'{name}: expected a {len(order)}-D '
+                                 f'{types[scope].__name__} kernel, got '
+                                 f'shape {v.shape}')
             v = v.transpose(order)
-        key = '.'.join(path[1:-1] + (rule,))
-        sd[key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+        sd[f'{scope}.{tensor}'] = torch.from_numpy(
+            np.ascontiguousarray(v, np.float32))
     return sd
 
 
@@ -105,7 +136,7 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load Flax variables into `model`, strictly: every Flax leaf must map
     to a module tensor of the same shape and every module tensor must be
     filled."""
-    sd = from_jax_variables(variables)
+    sd = from_jax_variables(variables, model)
     own = model.state_dict()
     for k, v in own.items():
         if k.endswith('.' + _TORCH_ONLY):
@@ -125,26 +156,35 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
 
 def to_jax_variables(model: torch.nn.Module) -> dict:
     """The module's weights as Flax variables (nested numpy dicts)."""
-    return state_dict_to_flax(model.state_dict())
+    return state_dict_to_flax(model.state_dict(), model)
 
 
-def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
-    """Tensors keyed by the module's state_dict names (weights, or buffers
-    shaped like them such as SGD momentum) as Flax variables, nested numpy
-    dicts under the Flax paths of those names."""
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor], model: nn.Module
+                       ) -> dict:
+    """Tensors keyed by `model`'s state_dict names (its weights, or
+    buffers shaped like them such as SGD momentum) as Flax variables,
+    nested numpy dicts under the Flax paths of those names."""
+    types = _module_types(model)
     flat = {}
     for key, v in sd.items():
-        parts = tuple(key.split('.'))
-        if parts[-1] == _TORCH_ONLY:
+        scope, _, tensor = key.rpartition('.')
+        if tensor == _TORCH_ONLY:
             continue
-        rule = _TO_FLAX.get((parts[-2], parts[-1]))
-        if rule is None:
-            raise KeyError(f'module tensor {key} has no Flax leaf')
-        coll, leaf = rule
+        rule = _rule(types, scope, _to_flax(),
+                     f'module tensor {key} has no Flax leaf')
+        if tensor not in rule:
+            raise KeyError(f'module tensor {key} has no Flax leaf: a '
+                           f'{types[scope].__name__} maps no {tensor!r}')
+        (coll, leaf), order = rule[tensor]
         a = v.detach().float().cpu().numpy()
-        if leaf == 'kernel':
-            a = a.transpose(np.argsort(_KERNELS[parts[-2]][1]))
-        flat[(coll,) + parts[:-1] + (leaf,)] = np.ascontiguousarray(a)
+        if order is not None:
+            if a.ndim != len(order):
+                raise ValueError(f'{key}: expected a {len(order)}-D '
+                                 f'{types[scope].__name__} weight, got '
+                                 f'shape {a.shape}')
+            a = a.transpose(np.argsort(order))
+        flat[(coll,) + tuple(scope.split('.')) + (leaf,)] = \
+            np.ascontiguousarray(a)
     return _nest(flat)
 
 

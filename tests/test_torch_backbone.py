@@ -1,6 +1,7 @@
 """PyTorch port against the JAX package: the ResNet and MobileNetV2
-backbones, DeConvBNAct, pixel_shuffle, adaptive_max_pool and the
-converter's transposed-conv and Dense rules.
+backbones, DeConvBNAct, pixel_shuffle, adaptive_max_pool, and the
+converter's rules, keyed on the module type (transposed convs, Dense
+layers under any name, strictness, checkpoint momentum buffers).
 
 Backbones run at their published widths on a small input: ResNet-18,
 ICNet's dilated ResNet-18 (dilations 1, 1, 2, 4), MobileNetV2, and the
@@ -282,45 +283,170 @@ def test_adaptive_max_pool_values_and_gradient_with_ties(out):
 
 # ------------------------------------------------------- the converter
 
-def test_deconv_and_dense_rules_and_round_trip():
-    """A transposed conv's (kh, kw, out, in) kernel goes to torch's
-    (in, out, kh, kw) and CANet's ca_fc Dense (in, out) to Linear's
-    (out, in); to_jax_variables maps both back exactly, and the torch
+class _Named(torch.nn.Module):
+    """Modules under arbitrary names: a Linear, a transposed conv, a conv
+    and a BatchNorm, the converter's rules found by their types alone."""
+
+    def __init__(self, names):
+        super().__init__()
+        dense, deconv, conv, bn = names
+        setattr(self, dense, torch.nn.Linear(6, 2))
+        setattr(self, deconv, torch.nn.ConvTranspose2d(4, 5, 3))
+        setattr(self, conv, torch.nn.Conv2d(3, 4, (3, 2), bias=False))
+        setattr(self, bn, torch.nn.BatchNorm2d(4))
+
+
+@pytest.mark.parametrize('names', [
+    ('ca_fc', 'deconv', 'conv', 'bn'),             # the old name-keyed rules
+    ('Dense_0', 'up', 'proj2', 'norm'),
+    ('glo1', 'Dense_1', 'loc', 'BatchNorm_0'),
+    ('deconv', 'conv', 'ca_fc', 'glo2'),           # names of other rules
+], ids=['old_names', 'auto_names', 'cgnet_names', 'swapped_names'])
+def test_deconv_and_dense_rules_and_round_trip(names):
+    """Rules keyed on the module type: a transposed conv's (kh, kw, out,
+    in) kernel goes to torch's (in, out, kh, kw), a Dense (in, out) to
+    Linear's (out, in) and a conv's HWIO to OIHW, whatever the modules
+    are called; state_dict_to_flax maps each back exactly, and the torch
     layouts compute what the Flax layouts do."""
+    dense, deconv, conv, bn = names
+    module = _Named(names)
     rs = np.random.RandomState(0)
-    deconv = rs.uniform(-1, 1, (3, 3, 5, 4)).astype(np.float32)
-    dense = rs.uniform(-1, 1, (6, 2)).astype(np.float32)
     variables = {'params': {
-        'up': {'deconv': {'kernel': deconv,
-                          'bias': np.arange(5, dtype=np.float32)}},
-        'head': {'ca_fc': {'kernel': dense,
-                           'bias': np.ones(2, np.float32)}}}}
-    sd = from_jax_variables(variables)
-    np.testing.assert_array_equal(sd['up.deconv.weight'].numpy(),
-                                  deconv.transpose(3, 2, 0, 1))
-    np.testing.assert_array_equal(sd['head.ca_fc.weight'].numpy(), dense.T)
-    back = state_dict_to_flax(sd)
-    for k, v in _flatten(variables).items():
-        np.testing.assert_array_equal(dict(_flatten(back))[k], v)
+        deconv: {'kernel': rs.uniform(-1, 1, (3, 3, 5, 4)),
+                 'bias': np.arange(5.0)},
+        dense: {'kernel': rs.uniform(-1, 1, (6, 2)), 'bias': np.ones(2)},
+        conv: {'kernel': rs.uniform(-1, 1, (3, 2, 3, 4))},
+        bn: {'scale': rs.uniform(0.5, 1.5, 4), 'bias': np.zeros(4)}},
+        'batch_stats': {bn: {'mean': rs.uniform(-1, 1, 4),
+                             'var': rs.uniform(0.5, 2, 4)}}}
+    variables = jax.tree.map(lambda a: np.asarray(a, np.float32), variables)
+    sd = from_jax_variables(variables, module)
+    np.testing.assert_array_equal(sd[f'{deconv}.weight'].numpy(),
+                                  variables['params'][deconv]['kernel']
+                                  .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd[f'{dense}.weight'].numpy(),
+                                  variables['params'][dense]['kernel'].T)
+    np.testing.assert_array_equal(sd[f'{conv}.weight'].numpy(),
+                                  variables['params'][conv]['kernel']
+                                  .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd[f'{bn}.running_var'].numpy(),
+                                  variables['batch_stats'][bn]['var'])
+    load_jax_variables(module, variables)
+    back = dict(_flatten(to_jax_variables(module)))
+    want = dict(_flatten(variables))
+    assert back.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(back[k], v)
     # the Dense computes the same on both sides
     g = rs.uniform(-1, 1, (3, 6)).astype(np.float32)
+    layer = getattr(module, dense)
     np.testing.assert_allclose(
-        torch.nn.functional.linear(torch.from_numpy(g),
-                                   sd['head.ca_fc.weight'],
-                                   sd['head.ca_fc.bias']).numpy(),
-        g @ dense + 1.0, rtol=1e-6, atol=1e-6)
+        layer(torch.from_numpy(g)).detach().numpy(),
+        g @ variables['params'][dense]['kernel'] + 1.0, rtol=1e-6,
+        atol=1e-6)
 
 
-def test_converter_stays_strict_on_kernel_ranks_and_names():
-    k4 = np.zeros((3, 3, 2, 2), np.float32)
-    k2 = np.zeros((2, 2), np.float32)
-    for path, v in ((('x', 'conv'), k2), (('x', 'deconv'), k2),
-                    (('x', 'ca_fc'), k4)):
-        with pytest.raises(ValueError, match='kernel'):
-            from_jax_variables({'params': {path[0]: {path[1]: {
-                'kernel': v}}}})
-    # a Dense under any other name has no rule
-    with pytest.raises(KeyError, match='unmapped'):
-        from_jax_variables({'params': {'Dense_0': {'kernel': k2}}})
+def _strict_cases():
+    k4 = np.zeros((3, 3, 4, 5), np.float32)
+    k2 = np.zeros((6, 2), np.float32)
+    names = ('fc', 'up', 'conv', 'bn')
+    return [
+        # a kernel whose rank is not its module's
+        ({'params': {'conv': {'kernel': k2}}}, ValueError, '4-D Conv2d'),
+        ({'params': {'up': {'kernel': k2}}}, ValueError,
+         '4-D ConvTranspose2d'),
+        ({'params': {'fc': {'kernel': k4}}}, ValueError, '2-D Linear'),
+        # a leaf the module's type has no rule for
+        ({'params': {'fc': {'scale': np.ones(2)}}}, KeyError,
+         'unmapped Flax leaf.*Linear has no such leaf'),
+        ({'batch_stats': {'conv': {'mean': np.ones(4)}}}, KeyError,
+         'unmapped Flax leaf'),
+        # a scope that names no module
+        ({'params': {'Dense_0': {'kernel': k2}}}, KeyError,
+         "no module named 'Dense_0'"),
+        ({'params': {'kernel': k2}}, KeyError, 'unmapped Flax leaf'),
+        # a module of a type without a rule
+        ({'params': {'ln': {'scale': np.ones(4)}}}, KeyError,
+         'unknown module type LayerNorm'),
+    ], names
+
+
+@pytest.mark.parametrize('case', range(8))
+def test_converter_stays_strict_on_kernel_ranks_and_names(case):
+    """Strict both ways, with no name in the rules: a kernel of another
+    rank than its module's, a leaf or a module type without a rule, a
+    scope that names no module, and a module tensor without a Flax leaf
+    raise; loading leaves no module tensor unfilled."""
+    cases, names = _strict_cases()
+    module = _Named(names)
+    module.ln = torch.nn.LayerNorm(4)
+    variables, error, match = cases[case]
+    with pytest.raises(error, match=match):
+        from_jax_variables(variables, module)
+    # the other direction
     with pytest.raises(KeyError, match='no Flax leaf'):
-        state_dict_to_flax({'fc.weight': torch.zeros(2, 2)})
+        state_dict_to_flax({'fc.weight_v': torch.zeros(2, 2)}, module)
+    with pytest.raises(KeyError, match='unknown module type LayerNorm'):
+        state_dict_to_flax({'ln.weight': torch.zeros(4)}, module)
+    with pytest.raises(KeyError, match="no module named 'nowhere'"):
+        state_dict_to_flax({'nowhere.weight': torch.zeros(2, 2)}, module)
+    del module.ln
+    partial = to_jax_variables(module)
+    del partial['batch_stats']
+    with pytest.raises(KeyError, match='without a Flax leaf'):
+        load_jax_variables(module, partial)
+
+
+@pytest.mark.parametrize('model,dense', [
+    ('cgnet', ('CGBlock_0', 'glo1')),
+    ('regseg', ('DBlock_4', 'SEBlock_0', 'Dense_1')),
+    ('dfanet', ('backbone2', 'FCAttention_0', 'Dense_0')),
+])
+def test_dense_leaves_of_the_gated_models_load(model, dense):
+    """CGNet's `glo1`/`glo2`, RegSeg's and DFANet's auto-named `Dense_n`
+    load with no entry of their own: every leaf of a random Flax tree
+    round-trips, and a Dense kernel lands transposed in its Linear."""
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.models import get_model
+    module = get_model(SegConfig(model=model, num_class=19, use_aux=False))
+    variables = random_jax_variables(module, seed=4)
+    load_jax_variables(module, variables)
+    back = dict(_flatten(to_jax_variables(module)))
+    want = dict(_flatten(variables))
+    assert back.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(back[k], v)
+    kernel = want[('params',) + dense + ('kernel',)]
+    linear = module.get_submodule('.'.join(dense))
+    assert isinstance(linear, torch.nn.Linear)
+    np.testing.assert_array_equal(linear.weight.detach().numpy(), kernel.T)
+
+
+@pytest.mark.parametrize('model', ['cgnet', 'sqnet'])
+def test_checkpoint_momentum_buffers_round_trip(model, tmp_path):
+    """SGD's momentum buffers go to the checkpoint under their Flax paths
+    (a Linear's and a transposed conv's transposed as their weights) and
+    come back equal: CGNet's Dense gates, SQNet's transposed convs."""
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.train.checkpoint import (restore_train_ckpt,
+                                                  save_train_ckpt)
+    cfg = dict(model=model, num_class=19, use_aux=False, dataset='synthetic',
+               crop_h=32, crop_w=64, train_bs=2, val_bs=2, synthetic_len=2,
+               compute_dtype='float32', use_tb=False, use_obs=False,
+               base_workers=0, save_dir=str(tmp_path))
+    trainer = SegTrainer(SegConfig(**cfg), device='cpu')
+    imgs, msks = next(iter(trainer.train_loader))
+    trainer.state, _ = trainer.train_step(trainer.state, imgs, msks)
+    save_train_ckpt(str(tmp_path / 'ck'), trainer.state, 1, 0.5)
+    fresh = SegTrainer(SegConfig(**{**cfg, 'save_dir': str(tmp_path / 'b')}),
+                       device='cpu')
+    assert restore_train_ckpt(str(tmp_path / 'ck'), fresh.state) == (1, 0.5)
+    want = {n: trainer.state.optimizer.state[p]['momentum_buffer']
+            for n, p in trainer.model.named_parameters()}
+    kinds = {type(m) for m in trainer.model.modules()}
+    assert (torch.nn.Linear if model == 'cgnet'
+            else torch.nn.ConvTranspose2d) in kinds
+    for n, p in fresh.model.named_parameters():
+        assert torch.equal(fresh.state.optimizer.state[p]['momentum_buffer'],
+                           want[n]), n

@@ -51,6 +51,18 @@ MODELS = {
     'esnet': (dict(model='esnet'), 1),
     'fddwnet': (dict(model='fddwnet'), 1),
     'fssnet': (dict(model='fssnet'), 1),
+    # the models that need no new op (tests/test_torch_plain_models.py,
+    # tests/test_torch_gated_models.py)
+    'sqnet': (dict(model='sqnet'), 1),
+    'edanet': (dict(model='edanet'), 8),
+    'adscnet': (dict(model='adscnet'), 1),
+    'contextnet': (dict(model='contextnet'), 2),
+    'fpenet': (dict(model='fpenet'), 2),
+    'espnet': (dict(model='espnet'), 1),
+    'espnetv2': (dict(model='espnetv2'), 8),
+    'cgnet': (dict(model='cgnet'), 8),
+    'regseg': (dict(model='regseg'), 4),
+    'dfanet': (dict(model='dfanet'), 4),
 }
 VARIANTS = ('bisenetv1', 'icnet_aux', 'icnet', 'swiftnet', 'farseenet',
             'shelfnet')
@@ -224,7 +236,7 @@ def test_registry_builds_the_backbone_family_and_refuses_the_rest():
     from rtseg_tpu_torch.models.backbone import Mobilenetv2, ResNet
     names = ('bisenetv1', 'icnet', 'swiftnet', 'farseenet', 'shelfnet',
              'linknet', 'liteseg', 'canet')
-    assert set(names) <= set(PORTED) and len(PORTED) == 20
+    assert set(names) <= set(PORTED) and len(PORTED) == 30
     for name in names:
         model = get_model(SegConfig(model=name, num_class=NC,
                                     use_aux=name == 'icnet'))

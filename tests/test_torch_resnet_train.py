@@ -51,6 +51,18 @@ VARIANTS = {
     'esnet': dict(model='esnet'),
     'fddwnet': dict(model='fddwnet'),
     'fssnet': dict(model='fssnet'),
+    # the models that need no new op (tests/test_torch_plain_train*.py,
+    # tests/test_torch_gated_train.py)
+    'sqnet': dict(model='sqnet'),
+    'edanet': dict(model='edanet'),
+    'adscnet': dict(model='adscnet'),
+    'contextnet': dict(model='contextnet'),
+    'fpenet': dict(model='fpenet'),
+    'espnet': dict(model='espnet'),
+    'espnetv2': dict(model='espnetv2'),
+    'cgnet': dict(model='cgnet'),
+    'regseg': dict(model='regseg'),
+    'dfanet': dict(model='dfanet'),
 }
 PORT_ONLY = dict(use_tb=False, use_obs=False, base_workers=0)
 

@@ -265,7 +265,7 @@ def test_converter_round_trip_and_strictness(bisenet_pair):
         np.testing.assert_array_equal(back[k], want[k])
     # a kernel lands transposed HWIO -> OIHW
     k = ('params', 'SegHead_0', 'ConvBNAct_0', 'Conv_0', 'conv', 'kernel')
-    sd = from_jax_variables(variables)
+    sd = from_jax_variables(variables, fresh)
     w = sd['SegHead_0.ConvBNAct_0.Conv_0.conv.weight'].numpy()
     np.testing.assert_array_equal(w, want[k].transpose(3, 2, 0, 1))
 

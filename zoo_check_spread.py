@@ -6,7 +6,8 @@ step's within 1e-3 and the weights within 1e-3. The check can tell a card
 fault from float32 rounding only where rounding alone stays well inside
 those limits. This script measures that on the CPU: the same steps (3, or as
 chip_smoke.ZOO_SMALL_RUN sets them) from
-the zoo's seeded weights, and from those weights times (1 + 1e-7 x
+the zoo's seeded weights (chip_smoke.zoo_small_variables), and from those
+weights times (1 + 1e-7 x
 standard normal noise), about one float32 rounding, and prints one JSON
 line a draw with how far the two runs part (largest relative difference
 of the losses, largest absolute difference of the weights).
@@ -28,8 +29,7 @@ import numpy as np
 
 import chip_smoke as cs
 from rtseg_tpu_torch.models import get_model
-from rtseg_tpu_torch.utils.convert import (_flatten, _nest,
-                                           random_jax_variables)
+from rtseg_tpu_torch.utils.convert import _flatten, _nest
 
 
 DRAWS = 2
@@ -39,8 +39,8 @@ def spread(kw: dict, samples: int):
     """Yield, a draw, how far the CPU run from perturbed weights parts
     from the CPU run from the zoo's weights."""
     build = cs.zoo_small_model(kw)
-    variables = random_jax_variables(
-        (build or get_model)(cs._train_config('unused', **kw)), seed=1)
+    variables = cs.zoo_small_variables(
+        kw, (build or get_model)(cs._train_config('unused', **kw)))
     config = cs.zoo_small_config(kw, samples)
     ref = cs._card_vs_cpu_runs(variables, ('cpu',), build, **config)['cpu']
     for seed in range(DRAWS):
