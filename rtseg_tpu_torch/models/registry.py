@@ -1,11 +1,13 @@
 """Model registry of the port (counterpart of rtseg_tpu/models/registry.py).
 
-Ported: ADSCNet, BiSeNetv1, BiSeNetv2, CANet, CFPNet, CGNet, ContextNet,
-DABNet, DDRNet, DFANet, EDANet, ERFNet, ESNet, ESPNet, ESPNetv2,
-FarSeeNet, FastSCNN, FDDWNet, FPENet, FSSNet, ICNet, LinkNet, LiteSeg,
-MiniNetv2, PP-LiteSeg, RegSeg, ShelfNet, SQNet, STDC and SwiftNet, each at
-its JAX registry defaults. Every other name of the JAX zoo raises
-NotImplementedError, and ROADMAP.md holds the order in which they come.
+Ported: every name of the JAX registry's MODEL_REGISTRY (36): ADSCNet,
+AGLNet, BiSeNetv1, BiSeNetv2, CANet, CFPNet, CGNet, ContextNet, DABNet,
+DDRNet, DFANet, EDANet, ENet, ERFNet, ESNet, ESPNet, ESPNetv2, FarSeeNet,
+FastSCNN, FDDWNet, FPENet, FSSNet, ICNet, LEDNet, LinkNet, Lite-HRNet
+(litehrnet18), LiteSeg, MiniNet, MiniNetv2, PP-LiteSeg, RegSeg, SegNet,
+ShelfNet, SQNet, STDC and SwiftNet, each at its JAX registry defaults.
+The `smp` encoder-decoder hub raises NotImplementedError, and ROADMAP.md
+says when it comes.
 Aux heads are built only for the aux models and the detail head only for
 the detail models; asking either of another model raises ValueError.
 """
@@ -13,6 +15,7 @@ the detail models; asking either of another model raises ValueError.
 from __future__ import annotations
 
 from .adscnet import ADSCNet
+from .aglnet import AGLNet
 from .bisenetv1 import BiSeNetv1
 from .bisenetv2 import BiSeNetv2
 from .canet import CANet
@@ -23,6 +26,7 @@ from .dabnet import DABNet
 from .ddrnet import DDRNet
 from .dfanet import DFANet
 from .edanet import EDANet
+from .enet import ENet
 from .erfnet import ERFNet
 from .esnet import ESNet
 from .espnet import ESPNet
@@ -33,28 +37,33 @@ from .fddwnet import FDDWNet
 from .fpenet import FPENet
 from .fssnet import FSSNet
 from .icnet import ICNet
+from .lednet import LEDNet
 from .linknet import LinkNet
+from .lite_hrnet import LiteHRNet
 from .liteseg import LiteSeg
+from .mininet import MiniNet
 from .mininetv2 import MiniNetv2
 from .pp_liteseg import PPLiteSeg
 from .regseg import RegSeg
+from .segnet import SegNet
 from .shelfnet import ShelfNet
 from .sqnet import SQNet
 from .stdc import STDC
 from .swiftnet import SwiftNet
 
 # the models built from num_class alone
-_PLAIN = {'adscnet': ADSCNet, 'bisenetv1': BiSeNetv1, 'canet': CANet,
-          'cfpnet': CFPNet, 'cgnet': CGNet, 'contextnet': ContextNet,
-          'dabnet': DABNet, 'dfanet': DFANet, 'edanet': EDANet,
-          'erfnet': ERFNet, 'esnet': ESNet, 'espnet': ESPNet,
-          'espnetv2': ESPNetv2, 'farseenet': FarSeeNet,
+_PLAIN = {'adscnet': ADSCNet, 'aglnet': AGLNet, 'bisenetv1': BiSeNetv1,
+          'canet': CANet, 'cfpnet': CFPNet, 'cgnet': CGNet,
+          'contextnet': ContextNet, 'dabnet': DABNet, 'dfanet': DFANet,
+          'edanet': EDANet, 'enet': ENet, 'erfnet': ERFNet, 'esnet': ESNet,
+          'espnet': ESPNet, 'espnetv2': ESPNetv2, 'farseenet': FarSeeNet,
           'fastscnn': FastSCNN, 'fddwnet': FDDWNet, 'fpenet': FPENet,
-          'fssnet': FSSNet, 'linknet': LinkNet, 'liteseg': LiteSeg,
+          'fssnet': FSSNet, 'lednet': LEDNet, 'linknet': LinkNet,
+          'lite_hrnet': LiteHRNet, 'liteseg': LiteSeg, 'mininet': MiniNet,
           'mininetv2': MiniNetv2, 'regseg': RegSeg, 'shelfnet': ShelfNet,
           'sqnet': SQNet, 'swiftnet': SwiftNet}
-PORTED = tuple(sorted(('bisenetv2', 'ddrnet', 'icnet', 'ppliteseg', 'stdc')
-                      + tuple(_PLAIN)))
+PORTED = tuple(sorted(('bisenetv2', 'ddrnet', 'icnet', 'ppliteseg', 'segnet',
+                       'stdc') + tuple(_PLAIN)))
 AUX_MODELS = ('bisenetv2', 'ddrnet', 'icnet')
 DETAIL_HEAD_MODELS = ('stdc',)
 
@@ -90,4 +99,7 @@ def get_model(config, device=None):
     if name == 'ppliteseg':
         return PPLiteSeg(num_class=nc, hires_remat=config.hires_remat,
                          device=device)
+    if name == 'segnet':
+        return SegNet(num_class=nc, pack_fullres=config.segnet_pack,
+                      device=device)
     return _PLAIN[name](num_class=nc, device=device)

@@ -10,11 +10,16 @@ Precision follows the JAX package: a conv casts its float32 weights to the
 activation type for each call (bf16 activations run bf16 convs with float32
 accumulation), and BatchNorm keeps float32 parameters and statistics,
 normalizing in float32 and returning the activation type.
+
+Dropout takes its keep masks from a mask source bound for the forward
+(`bind_dropout`), not from a global generator: the train step binds one
+drawn from its per-step generator, and tests bind given masks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from contextlib import contextmanager
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -169,6 +174,18 @@ class Conv(nn.Module):
                         c.dilation, c.groups)
 
 
+def conv3x3(in_channels: int, out_channels: int, stride: Size2 = 1,
+            bias: bool = False, device=None) -> Conv:
+    return Conv(in_channels, out_channels, 3, stride, use_bias=bias,
+                device=device)
+
+
+def conv1x1(in_channels: int, out_channels: int, stride: Size2 = 1,
+            bias: bool = False, device=None) -> Conv:
+    return Conv(in_channels, out_channels, 1, stride, use_bias=bias,
+                device=device)
+
+
 class ConvBNAct(nn.Module):
     """Conv -> BN -> Activation."""
 
@@ -252,6 +269,106 @@ class DeConvBNAct(nn.Module):
         x = F.conv_transpose2d(x, d.weight.to(x.dtype), d.bias.to(x.dtype),
                                d.stride, d.padding, d.output_padding)
         return self.Activation_0(self.BatchNorm_0(x))
+
+
+# -------------------------------------------------------------------- dropout
+
+# a mask source: (module path, NCHW mask shape, keep probability) -> bool
+# keep mask of that shape, on any device
+MaskSource = Callable[[str, Tuple[int, ...], float], torch.Tensor]
+
+
+class DropoutMasks:
+    """Keep masks drawn from `generator`, on its device: uniform < keep
+    probability, as Flax's random.bernoulli draws them. The uniforms are
+    drawn in NHWC order and handed back as a channels_last NCHW view, the
+    models' layout."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, path: str, shape: Tuple[int, ...],
+                 keep_prob: float) -> torch.Tensor:
+        n, c, h, w = shape
+        u = torch.rand((n, h, w, c), generator=self.generator,
+                       device=self.generator.device)
+        return (u < keep_prob).permute(0, 3, 1, 2)
+
+
+class Dropout(nn.Module):
+    """Flax's nn.Dropout as the JAX package's Dropout applies it: in
+    training `where(keep, x / keep_prob, 0)` in the input's type, with
+    keep_prob rounded to that type first as JAX rounds the Python scalar
+    (F.dropout multiplies by a float32 1 / keep_prob, which rounds
+    otherwise in bf16); out of training, or at rate 0, the identity; at
+    rate 1, zeros.
+
+    The keep mask comes from the mask source that `bind_dropout` binds for
+    a training forward (the train step binds one drawn from its per-step
+    generator; tests bind given masks), asked with this module's path in
+    the model. A training forward with no source bound raises, as Flax
+    raises without a 'dropout' rng: it never quietly runs deterministic.
+    """
+
+    # Dropout2d: one draw a sample and channel
+    channel_wise = False
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = float(rate)
+        self.masks: Optional[MaskSource] = None
+        self.path = ''
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if self.masks is None:
+            raise RuntimeError(
+                f'{type(self).__name__} {self.path!r} in training needs '
+                f'keep masks: bind a mask source with bind_dropout (the '
+                f'train step binds its per-step generator)')
+        n, c, h, w = x.shape
+        shape = (n, c, 1, 1) if self.channel_wise else (n, c, h, w)
+        keep = self.masks(self.path, shape, 1.0 - self.rate)
+        if tuple(keep.shape) != shape or keep.dtype != torch.bool:
+            raise ValueError(f'{self.path}: a keep mask must be bool of '
+                             f'shape {shape}, got {keep.dtype} '
+                             f'{tuple(keep.shape)}')
+        keep_prob = torch.tensor(1.0 - self.rate, dtype=x.dtype).item()
+        return torch.where(keep.to(x.device), x / keep_prob, 0.0)
+
+
+class Dropout2d(Dropout):
+    """Drops whole channels: the mask is [N, C, 1, 1], Flax's
+    `broadcast_dims=(1, 2)` on NHWC. Rate 0.2 by default."""
+
+    channel_wise = True
+
+    def __init__(self, rate: float = 0.2):
+        super().__init__(rate)
+
+
+def dropout_modules(model: nn.Module):
+    """[(path, module)] of the Dropout and Dropout2d modules of `model`."""
+    return [(name, m) for name, m in model.named_modules()
+            if isinstance(m, Dropout)]
+
+
+@contextmanager
+def bind_dropout(model: nn.Module, masks: MaskSource, modules=None):
+    """Bind the mask source `masks` to every dropout of `model` (or to
+    `modules`, its `dropout_modules`) for the forwards inside the block,
+    and unbind it after."""
+    modules = dropout_modules(model) if modules is None else modules
+    for name, m in modules:
+        m.masks, m.path = masks, name
+    try:
+        yield
+    finally:
+        for _, m in modules:
+            m.masks = None
 
 
 # ------------------------------------------------------------- composite heads

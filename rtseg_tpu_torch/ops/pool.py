@@ -83,6 +83,64 @@ def global_avg_pool_nchw(x: torch.Tensor, keepdims: bool = True
     return x.mean(dim=(2, 3), keepdim=keepdims)
 
 
+# ------------------------------------------------------ argmax pool / unpool
+
+def max_pool_argmax_2x2(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2 stride-2 max pool of NHWC `x`: (values, the within-window
+    position of the maximum in [0, 4) as int8), odd trailing rows and
+    columns truncated. The JAX package's construction, not
+    F.max_pool2d(return_indices=True): the values are the nested maximum
+    of the four strided slices, so at equal values the gradient is split
+    as jax.grad splits it (evenly between the two sides of each
+    `maximum`; 0.25 each on a four-way tie), where F.max_pool2d sends it
+    all to one position; the index takes the first maximum in row-major
+    order; and the index maps are int8, an eighth of torch's int64 ones."""
+    h2, w2 = x.shape[1] // 2, x.shape[2] // 2
+    x = x[:, :h2 * 2, :w2 * 2, :]
+    a = x[:, 0::2, 0::2, :]
+    b = x[:, 0::2, 1::2, :]
+    c = x[:, 1::2, 0::2, :]
+    d = x[:, 1::2, 1::2, :]
+    vals = torch.maximum(torch.maximum(a, b), torch.maximum(c, d))
+    code = torch.full((), 3, dtype=torch.int8, device=x.device)
+    for k, s in ((2, c), (1, b), (0, a)):
+        code = torch.where(s >= vals, k, code)
+    return vals, code
+
+
+def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor,
+                   out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The inverse of max_pool_argmax_2x2 on NHWC `x`: each value goes to
+    its position `idx` of a 2x2 window, the others are 0. Four `where`
+    planes interleaved by stacking on new adjacent axes (no scatter), then
+    zero-padded at the bottom and right to `out_hw`."""
+    n, h2, w2, c = x.shape
+    planes = [torch.where(idx == k, x, 0.0) for k in range(4)]
+    top = torch.stack(planes[0:2], dim=3).reshape(n, h2, 2 * w2, c)
+    bot = torch.stack(planes[2:4], dim=3).reshape(n, h2, 2 * w2, c)
+    out = torch.stack([top, bot], dim=2).reshape(n, 2 * h2, 2 * w2, c)
+    if out_hw is not None and tuple(out_hw) != (h2 * 2, w2 * 2):
+        oh, ow = out_hw
+        out = F.pad(out, (0, 0, 0, ow - w2 * 2, 0, oh - h2 * 2))
+    return out
+
+
+def max_pool_argmax_2x2_nchw(x: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """max_pool_argmax_2x2 on the NHWC view of NCHW `x`: channels_last
+    values and index maps for a channels_last input."""
+    vals, idx = max_pool_argmax_2x2(x.permute(0, 2, 3, 1))
+    return vals.permute(0, 3, 1, 2), idx.permute(0, 3, 1, 2)
+
+
+def max_unpool_2x2_nchw(x: torch.Tensor, idx: torch.Tensor,
+                        out_hw: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
+    return max_unpool_2x2(x.permute(0, 2, 3, 1), idx.permute(0, 2, 3, 1),
+                          out_hw).permute(0, 3, 1, 2)
+
+
 def _nhwc(fn, x, *args, **kwargs):
     return fn(x.permute(0, 3, 1, 2), *args, **kwargs).permute(0, 2, 3, 1)
 

@@ -9,6 +9,15 @@ backpropagates the loss into float32 gradients, writes the step's LR and
 momentum into the SGD param group, updates, and moves the EMA model. One
 card: no gradient all-reduce.
 
+The models with dropout (ENet, MiniNet) draw their keep masks from a
+torch.Generator on the batch's device that the step seeds from
+config.random_seed + 1 and the step number (`dropout_seed`), as the JAX
+step folds the step into PRNGKey(random_seed + 1): a resumed run draws the
+masks an uninterrupted one draws. The masks cannot equal the JAX
+package's (Flax folds the module path into a threefry key), so tests and
+the card-against-CPU check hand the step their own through
+`dropout_masks`.
+
 Every parameter enters the update with a gradient, zero where autograd left
 none (STDC's `detail_conv`, which only makes the detail targets): torch SGD
 skips a parameter whose gradient is None, where the JAX package's optax
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from ..losses import get_detail_loss_fn, get_loss_fn, laplacian_pyramid
+from ..nn.modules import DropoutMasks, bind_dropout, dropout_modules
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
 from ..ops.resize import resize_bilinear, resize_nearest
@@ -108,16 +118,38 @@ def _make_forward_loss(config) -> Callable:
     return forward_loss
 
 
-def build_train_step(config, norm_coeffs=None) -> Callable:
+def dropout_seed(random_seed: int, step: int) -> int:
+    """The seed of step `step`'s dropout generator: random_seed + 1 and
+    the step, one 64-bit number."""
+    return (((int(random_seed) + 1) << 32) + int(step)) % (1 << 64)
+
+
+def build_train_step(config, norm_coeffs=None,
+                     dropout_masks: Optional[Callable] = None) -> Callable:
     """train_step(state, images [B,H,W,3], masks [B,H,W]) -> (state,
     {'loss': 0-dim float32 tensor on the device, and 'loss_detail' with the
-    detail head}); updates `state` in place. Nothing is read back."""
+    detail head}); updates `state` in place. Nothing is read back.
+
+    `dropout_masks(step)`, where given, returns the mask source
+    (nn/modules.py `MaskSource`) of that step in place of the masks drawn
+    from the step's generator: the seam through which tests hand the port
+    the masks they hand the JAX package, and the card-against-CPU check
+    the same masks on both devices."""
     if norm_coeffs is not None:
         _refuse('the uint8 flip+normalize tail (norm_coeffs)', 'item 3')
     forward_loss = _make_forward_loss(config)
     lr_fn = get_lr_schedule(config)
     mom = get_momentum(config)
     total_itrs = np.float32(max(int(config.total_itrs), 1))
+    drops = [None, []]    # the last model seen and its dropout modules
+    generators = {}       # device -> the step's dropout generator
+
+    def drawn_masks(device: torch.device, step: int) -> DropoutMasks:
+        g = generators.get(device)
+        if g is None:
+            g = generators[device] = torch.Generator(device=device)
+        g.manual_seed(dropout_seed(config.random_seed, step))
+        return DropoutMasks(g)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    masks: torch.Tensor):
@@ -126,7 +158,16 @@ def build_train_step(config, norm_coeffs=None) -> Callable:
         set_hparams(state.optimizer, lr_fn(k),
                     mom(k) if callable(mom) else mom)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = forward_loss(model, images, masks)
+        if drops[0] is not model:
+            drops[:] = [model, dropout_modules(model)]
+        mods = drops[1]
+        if mods:
+            source = (dropout_masks(k) if dropout_masks is not None
+                      else drawn_masks(images.device, k))
+            with bind_dropout(model, source, mods):
+                loss, metrics = forward_loss(model, images, masks)
+        else:
+            loss, metrics = forward_loss(model, images, masks)
         loss.backward()
         for p in model.parameters():
             if p.grad is None:

@@ -16,6 +16,9 @@ caller, or drawn from config.random_seed with the initializers of Flax's
 torchvision state_dict then replaces the backbone scope's weights
 (utils/torch_import.py), before the EMA copy is made and before a
 checkpoint is resumed. They seed the model and the EMA.
+The dropout models (ENet, MiniNet) draw their masks from the train step's
+generator, seeded from config.random_seed + 1 and the step
+(train/step.py), so a resumed run draws the masks of an uninterrupted one.
 Prediction to files, TensorBoard, segscope telemetry, profiling and the
 compile cache are later slices (ROADMAP.md).
 """

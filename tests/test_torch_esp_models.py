@@ -77,7 +77,7 @@ def test_registry_builds_the_ten_and_refuses_heads():
     aux and detail heads raise ValueError for each, as in the JAX
     registry."""
     from rtseg_tpu.models.registry import model_class
-    assert len(PORTED) == 30 and set(FAMILY) <= set(PORTED)
+    assert len(PORTED) == 36 and set(FAMILY) <= set(PORTED)
     for name in FAMILY:
         model = get_model(SegConfig(model=name, num_class=NC, use_aux=False))
         assert type(model).__name__ == model_class(name).__name__

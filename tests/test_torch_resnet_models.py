@@ -63,6 +63,15 @@ MODELS = {
     'cgnet': (dict(model='cgnet'), 8),
     'regseg': (dict(model='regseg'), 4),
     'dfanet': (dict(model='dfanet'), 4),
+    # the models of the shuffle, dropout and argmax-pool ops
+    # (tests/test_torch_shuffle_models.py, tests/test_torch_pool_models.py,
+    # tests/test_torch_litehrnet.py)
+    'lednet': (dict(model='lednet'), 8),
+    'aglnet': (dict(model='aglnet'), 2),
+    'lite_hrnet': (dict(model='lite_hrnet'), 4),
+    'enet': (dict(model='enet'), 1),
+    'mininet': (dict(model='mininet'), 1),
+    'segnet': (dict(model='segnet'), 1),
 }
 VARIANTS = ('bisenetv1', 'icnet_aux', 'icnet', 'swiftnet', 'farseenet',
             'shelfnet')
@@ -236,7 +245,7 @@ def test_registry_builds_the_backbone_family_and_refuses_the_rest():
     from rtseg_tpu_torch.models.backbone import Mobilenetv2, ResNet
     names = ('bisenetv1', 'icnet', 'swiftnet', 'farseenet', 'shelfnet',
              'linknet', 'liteseg', 'canet')
-    assert set(names) <= set(PORTED) and len(PORTED) == 30
+    assert set(names) <= set(PORTED) and len(PORTED) == 36
     for name in names:
         model = get_model(SegConfig(model=name, num_class=NC,
                                     use_aux=name == 'icnet'))

@@ -63,6 +63,14 @@ VARIANTS = {
     'cgnet': dict(model='cgnet'),
     'regseg': dict(model='regseg'),
     'dfanet': dict(model='dfanet'),
+    # the models of the shuffle, dropout and argmax-pool ops
+    # (tests/test_torch_last_train*.py)
+    'lednet': dict(model='lednet'),
+    'aglnet': dict(model='aglnet'),
+    'lite_hrnet': dict(model='lite_hrnet'),
+    'enet': dict(model='enet'),
+    'mininet': dict(model='mininet'),
+    'segnet': dict(model='segnet'),
 }
 PORT_ONLY = dict(use_tb=False, use_obs=False, base_workers=0)
 

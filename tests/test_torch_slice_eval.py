@@ -157,10 +157,10 @@ def test_port_refuses_what_it_does_not_implement():
     for lever in ('pack_fullres', 's2d_stem', 'detail_remat', 'hires_remat'):
         with pytest.raises(NotImplementedError, match=lever):
             get_model(_config(**{lever: True}))
-    # twelve models are ported (tests/test_torch_zoo_*.py,
-    # tests/test_torch_*_models.py); ENet is not
+    # every model of the JAX registry is ported (tests/test_torch_zoo_*.py,
+    # tests/test_torch_*_models.py); the smp encoder-decoder hub is not
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        get_model(_config(model='enet', use_aux=False))
+        get_model(_config(model='smp', use_aux=False))
     # training is ported: with the aux heads the training forward returns
     # the logits and the four aux logits
     model = get_model(_config())

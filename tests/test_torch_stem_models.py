@@ -77,7 +77,7 @@ def test_registry_dispatch_and_refusals_of_the_new_models():
     aux and detail heads raise ValueError for each, as in the JAX registry;
     PP-LiteSeg refuses the TPU lever hires_remat."""
     from rtseg_tpu.models.registry import model_class
-    assert len(PORTED) == 30 and set(NEW) <= set(PORTED)
+    assert len(PORTED) == 36 and set(NEW) <= set(PORTED)
     for name in NEW:
         model = get_model(SegConfig(model=name, num_class=NC, use_aux=False))
         assert type(model).__name__ == model_class(name).__name__

@@ -259,7 +259,7 @@ def test_train_step_refuses_what_it_does_not_implement(tmp_path):
         with pytest.raises(ValueError, match='support'):
             get_model(SegConfig(**{**KW, **kw}))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        get_model(SegConfig(**{**KW, 'model': 'enet'}))
+        get_model(SegConfig(**{**KW, 'model': 'smp'}))
     cfg = _config(tmp_path, aux_coef=(1.0, 1.0))
     trainer = SegTrainer(cfg, device='cpu')
     imgs, msks = next(iter(trainer.train_loader))

@@ -22,7 +22,7 @@ import torch
 
 from rtseg_tpu_torch.config import SegConfig
 from rtseg_tpu_torch.models import get_model
-from rtseg_tpu_torch.nn import BatchNorm
+from rtseg_tpu_torch.nn import BatchNorm, DropoutMasks, bind_dropout
 
 H, W = 512, 1024
 
@@ -37,7 +37,10 @@ def bn_values(name: str) -> dict:
     for m in layers:
         m.register_forward_hook(lambda mod, args, out:
                                 seen.append(args[0].numel()))
-    with torch.no_grad():
+    # a training forward; the dropout models draw their masks from a seeded
+    # CPU generator
+    masks = DropoutMasks(torch.Generator().manual_seed(0))
+    with torch.no_grad(), bind_dropout(model, masks):
         model(torch.rand(1, H, W, 3))
     return {'model': name, 'values_per_image': sum(seen),
             'batchnorm_layers': len(layers), 'calls': len(seen)}
