@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a);
+  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a),
+     and the baseline K2 beside them where the first port's
+     confusion_matrix.cu is unpacked at BASELINE_TREE (BASELINE_SHA256);
      count the SASS instructions of K1's row loop (cuobjdump)
   2. K1 (fused upsample+argmax) against its plain version at the slice's
      shapes, [16,128,256,19] -> 1024x2048, in float32 and bfloat16 (and
@@ -16,7 +18,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      512x1024 (float32, bfloat16, and bfloat16 against the float32 plain
      version), W=2050,
      align_corners=False, a downsample, an odd shape, C=1, C=150
-  3. K2 (confusion matrix) against its plain version: bit-equal
+  3. K2 (confusion matrix) against its plain version, bit-equal, on four
+     input families (k2_family: uniform random, the synthetic dataset's
+     8x8 cells, street-like, one key) at [16,1024,2048] and [16,512,1024]
+     with int32 and int64 labels, on offset views, odd n, C=1 and C=241;
+     its time on each family and shape beside the bound and the baseline
+     K2 (in turns, where built), and its device time a call with the calls
+     queued behind a sleep kernel beside the host's time a call
   4. the slice: SegTrainer(cfg).validate() of BiSeNetv2 (aux heads, 19
      classes, bf16) on synthetic 1024x2048 data, bs16, 3 batches, with the
      kernels' launch counts read around the run; build_predict_step once;
@@ -60,7 +68,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      detail_conv (no gradient) moved by weight decay as on the CPU; the
      train step's time, split and peak memory, and the profile of the
      models new in this slice (PROFILED); the eval step at 1024x2048 and
-     K1, K2 timed on each model's logits there
+     K1, K2 timed on each model's logits there (and the baseline K2, in
+     turns)
   7. import: a random torchvision-named ResNet-18 and MobileNetV2
      state_dict, written to a temp dir, imported through
      config.backbone_ckpt by SegTrainer on the card into SwiftNet and
@@ -146,8 +155,10 @@ def phase_card_and_build():
     say(f'card: {card}')
     from rtseg_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
+    baseline = _start_baseline_k2_build(cuda_build)
     logs = cuda_build.build(force=True, ptxas_verbose=True)
     say(f'build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s')
+    baseline = _finish_baseline_k2_build(baseline)
     for name, log in logs.items():
         regs, spills, fn, mine = [], 0, '', None
         for line in log.splitlines():
@@ -164,7 +175,69 @@ def phase_card_and_build():
         say(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} '
             f'registers, {spills} bytes of spill stores'
             + (f'; bf16 C={C}: {mine} registers' if mine else ''))
-    return card, _sass_row_loop(cuda_build)
+    return card, _sass_row_loop(cuda_build), baseline
+
+
+def _start_baseline_k2_build(cuda_build):
+    """Start nvcc on the baseline's confusion_matrix.cu where its tree is
+    unpacked at BASELINE_TREE (git-ignored; absent in a plain checkout) and
+    the source is the first port's (BASELINE_SHA256). Returns (process,
+    library), or None, saying why."""
+    import hashlib
+    src = BASELINE_TREE / 'rtseg_tpu_torch/ops/csrc/confusion_matrix.cu'
+    if not src.exists():
+        say(f'baseline K2: {BASELINE_TREE} absent, not timed')
+        return None
+    if hashlib.sha256(src.read_bytes()).hexdigest() != BASELINE_SHA256:
+        say(f'baseline K2: {src} is not the first port\'s kernel, not '
+            f'timed')
+        return None
+    lib = cuda_build.library_path('confusion_matrix_baseline')
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-o', str(lib),
+           str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def _finish_baseline_k2_build(started):
+    """The baseline K2, the first port's kernel (one pixel a thread, a
+    warp's keys grouped by __match_any_sync, one histogram a block), called
+    as its wrapper called it (int32 maps, a zeroed output, 8 blocks of 256
+    threads an SM at most, the device's properties read every call), or
+    None where it was not built. It only reports: a failed build, launch or
+    count is said and never fails the run."""
+    if started is None:
+        return None
+    proc, lib = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        say(f'baseline K2: nvcc failed, not timed:\n{log}')
+        return None
+    import ctypes
+    fn = ctypes.CDLL(str(lib)).rtseg_confusion_matrix
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def baseline_k2(preds, labels, num_class, ignore_index=IGNORE):
+        props = torch.cuda.get_device_properties(preds.device)
+        t = labels.reshape(-1).to(torch.int32)
+        p = preds.reshape(-1).to(torch.int32)
+        n = t.numel()
+        out = torch.zeros((num_class, num_class), dtype=torch.int32,
+                          device=preds.device)
+        blocks = max(1, min(-(-n // 256), props.multi_processor_count * 8))
+        stream = torch.cuda.current_stream(preds.device).cuda_stream
+        rc = fn(t.data_ptr(), p.data_ptr(), n, num_class, ignore_index,
+                out.data_ptr(), blocks, stream)
+        if rc:
+            say(f'baseline K2: CUDA error {rc} at launch')
+        return out
+
+    say(f'baseline K2: built from {BASELINE_TREE}')
+    return baseline_k2
 
 
 def _sass_row_loop(cuda_build):
@@ -335,36 +408,196 @@ def phase_k1(dev):
 
 
 # ------------------------------------------------------------------ phase 3
-def phase_k2(dev):
+K2_SHAPES = ((B, H, W), (B, TRAIN_H, TRAIN_W))
+K2_FAMILIES = ('uniform', 'synthetic', 'street', 'one_key')
+STREET_SHARES = (0.37, 0.23, 0.16, 0.07, 0.06, 0.04)
+# an earlier tree (`git archive` of a parent commit), git-ignored: where
+# its confusion_matrix.cu is the first port's (one pixel a thread, keys
+# grouped by __match_any_sync; its sha256 below), that K2 is built and
+# timed beside this one, in turns. Another source is not built: its C entry
+# need not take the arguments `_finish_baseline_k2_build` passes.
+BASELINE_TREE = Path(__file__).resolve().parent / '_checkout' / 'parent'
+BASELINE_SHA256 = ('0a962a1e615e91bf750a8d749b733bad'
+                   '599848db9ab50362dd63cf9cced12e60')
+
+
+def k2_family(family, shape, dev, seed=1, num_class=C):
+    """(preds, labels) int32 on the card, made from `seed`:
+    'uniform' random labels and predictions with ignored (10%) and
+    out-of-range values; 'synthetic' the synthetic dataset's 8x8 cells of
+    uniform classes, predictions right on 90% of the cells; 'street' a
+    class field at 1/32 resolution (32x64 cells at 1024x2048) upsampled
+    nearest, classes drawn with a street-scene skew (STREET_SHARES on six
+    classes, the remaining 0.07 even over the others), about 10% ignored
+    (the bottom 1/16 of the rows and 5% of the cells), predictions right
+    on 90% of the cells and another class on the rest; 'one_key' class 0
+    labels and predictions everywhere."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, hh, ww = shape
+    if family == 'uniform':
+        preds = torch.randint(0, num_class + 2, shape, generator=g,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(-1, num_class + 2, shape, generator=g,
+                               device=dev, dtype=torch.int32)
+        drop = torch.rand(shape, generator=g, device=dev) < 0.1
+        return preds, torch.where(drop, torch.full_like(labels, IGNORE),
+                                  labels)
+    if family == 'one_key':
+        zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+        return zeros, zeros.clone()
+    cell = 8 if family == 'synthetic' else 32
+    field = (b, hh // cell, ww // cell)
+    if family == 'synthetic':
+        lab = torch.randint(0, num_class, field, generator=g, device=dev)
+    else:
+        rest = (1 - sum(STREET_SHARES)) / (num_class - len(STREET_SHARES))
+        shares = torch.tensor(list(STREET_SHARES) + [rest] * (
+            num_class - len(STREET_SHARES)), device=dev)
+        lab = torch.multinomial(shares, math.prod(field), replacement=True,
+                                generator=g).reshape(field)
+    other = (lab + torch.randint(1, num_class, field, generator=g,
+                                 device=dev)) % num_class
+    pred = torch.where(torch.rand(field, generator=g, device=dev) < 0.1,
+                       other, lab)
+    if family == 'street':
+        lab = torch.where(torch.rand(field, generator=g, device=dev) < 0.05,
+                          torch.full_like(lab, IGNORE), lab)
+        lab[:, -max(1, field[1] // 16):] = IGNORE
+    up = lambda a: a.repeat_interleave(cell, 1).repeat_interleave(
+        cell, 2).to(torch.int32).contiguous()
+    return up(pred), up(lab)
+
+
+def _offset_view(x, offset):
+    """x's pixels as a contiguous 1-D view that starts `offset` int32
+    elements into its storage."""
+    flat = x.reshape(-1)
+    base = torch.empty(flat.numel() + offset, dtype=flat.dtype,
+                       device=flat.device)
+    base[offset:] = flat
+    return base[offset:]
+
+
+def k2_turns(new, old, iters=20):
+    """Mean ms of a call of `new` and of `old` (None: not timed), in turns
+    old, new, new, old (CUDA events after warm-up)."""
+    if old is None:
+        return time_ms(new, iters), None
+    o1, n1, n2, o2 = (time_ms(f, iters) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def queued_ms(fn, iters=50):
+    """(device ms a call, host ms a call, queued) of `fn`: its calls are
+    queued behind a long sleep kernel, so the events around them time the
+    card alone; the host's time is the wall time to queue them. `queued`
+    says the card had not reached the first call when the last was
+    queued."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)              # about 50 ms at 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    queued = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host, queued
+
+
+def phase_k2(dev, baseline=None):
+    """K2 bit-equal to its plain version on the input families at both
+    shapes (int32 and int64 labels), on offset views (the same offset:
+    a scalar head; other offsets: scalar loads throughout), on odd n, at
+    C=1 and C=241 and on one cell past 2^24; then its time on each family
+    and shape beside the baseline K2 (`baseline`, in turns) and the bound,
+    and
+    its device time a call with the calls queued behind a long kernel,
+    beside the host's time a call."""
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
                                                     confusion_matrix_plain)
-    g = torch.Generator(device=dev).manual_seed(1)
-    shape = (B, H, W)
-    preds = torch.randint(0, C + 2, shape, generator=g, device=dev,
-                          dtype=torch.int32)          # some preds >= C
-    labels = torch.randint(-1, C + 2, shape, generator=g, device=dev,
-                           dtype=torch.int32)         # -1 and >= C drop
-    drop = torch.rand(shape, generator=g, device=dev) < 0.1
-    labels = torch.where(drop, torch.full_like(labels, IGNORE), labels)
-    err = 0
-    for lab in (labels, labels.long()):
-        got = confusion_matrix_pallas(preds, lab, C, IGNORE)
-        ref = confusion_matrix_plain(preds, lab, C, IGNORE)
+
+    def same(preds, labels, what, num_class=C):
+        got = confusion_matrix_pallas(preds, labels, num_class, IGNORE)
+        ref = confusion_matrix_plain(preds, labels, num_class, IGNORE)
         torch.cuda.synchronize()
-        check(got.dtype == torch.int32 and got.shape == (C, C),
-              f'K2 output {got.dtype} {tuple(got.shape)}')
-        err = max(err, int((got.long() - ref.long()).abs().max()))
-        check(torch.equal(got, ref), f'K2 differs from bincount ({lab.dtype})')
-    say(f'K2 random/ignored/out-of-range ({labels.numel()} px, int32 and '
-        f'int64 labels): bit-equal, total {int(got.sum())}')
-    same = torch.zeros(shape, dtype=torch.int32, device=dev)
-    got = confusion_matrix_pallas(same, same, C, IGNORE)
-    check(torch.equal(got, confusion_matrix_plain(same, same, C, IGNORE)),
-          'K2 differs from bincount on one full cell')
-    check(int(got[0, 0]) == same.numel() > 2 ** 24,
-          f'K2 cell count {int(got[0, 0])} != {same.numel()}')
+        check(got.dtype == torch.int32 and
+              got.shape == (num_class, num_class),
+              f'K2 output {got.dtype} {tuple(got.shape)} ({what})')
+        err = int((got.long() - ref.long()).abs().max())
+        check(torch.equal(got, ref), f'K2 differs from bincount ({what}): '
+                                     f'max abs {err}')
+        if baseline is not None and not torch.equal(
+                baseline(preds, labels, num_class), ref):
+            say(f'baseline K2 differs from bincount ({what})')
+        errs.append(err)
+        return int(got.sum())
+
+    errs = []
+
+    table = {}
+    for shape in K2_SHAPES:
+        n = math.prod(shape)
+        bound, by = bound_ms(n * 8, n)
+        for family in K2_FAMILIES:
+            preds, labels = k2_family(family, shape, dev)
+            total = same(preds, labels, f'{family} {shape}')
+            same(preds, labels.long(), f'{family} {shape} int64 labels')
+            edges = family in ('uniform', 'street')
+            if edges:
+                for po in (1, 3):
+                    same(_offset_view(preds, po), _offset_view(labels, 1),
+                         f'{family} {shape} views at offsets {po} and 1')
+                same(preds.reshape(-1)[:n - 7], labels.reshape(-1)[:n - 7],
+                     f'{family} {shape} n - 7')
+            ms, old = k2_turns(
+                lambda: confusion_matrix_pallas(preds, labels, C, IGNORE),
+                (lambda: baseline(preds, labels, C)) if baseline else None)
+            table.setdefault(family, {})[f'{shape[1]}x{shape[2]}'] = {
+                'ms': ms, 'baseline_ms': old, 'bound_ms': bound,
+                'bound_by': by, 'share_of_bound': bound / ms,
+                'counted': total}
+            say(f'K2 {family} [{shape[0]},{shape[1]},{shape[2]}]: bit-equal '
+                f'(int32, int64 labels{", views, odd n" if edges else ""}), '
+                f'{total} counted; {ms:.4f} ms, {bound / ms:.1%} of the '
+                f'{bound:.4f} ms bound ({by})'
+                + (f'; the baseline K2 {old:.4f} ms ({old / ms:.3f}x)'
+                   if old else ''))
+            del preds, labels
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = K2_SHAPES[0]
+    for num_class in (1, 241):
+        preds = torch.randint(0, num_class + 3, shape, generator=g,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(-1, num_class + 3, shape, generator=g,
+                               device=dev, dtype=torch.int32)
+        total = same(preds, labels, f'C={num_class}', num_class)
+        say(f'K2 C={num_class} {list(shape)}: bit-equal, {total} counted')
+    del preds, labels
+    one = torch.zeros(shape, dtype=torch.int32, device=dev)
+    got = confusion_matrix_pallas(one, one, C, IGNORE)
+    check(int(got[0, 0]) == one.numel() > 2 ** 24,
+          f'K2 cell count {int(got[0, 0])} != {one.numel()}')
     say(f'K2 one cell of {int(got[0, 0])} > 2^24 counts: bit-equal')
-    return err
+    # the card's time a call alone, and the host's
+    device = {}
+    for family in ('uniform', 'street'):
+        for shape in K2_SHAPES:
+            preds, labels = k2_family(family, shape, dev)
+            dev_ms, host_ms, queued = queued_ms(
+                lambda: confusion_matrix_pallas(preds, labels, C, IGNORE))
+            key = f'{family} {shape[1]}x{shape[2]}'
+            device[key] = {'device_ms': dev_ms, 'host_ms': host_ms,
+                           'queued': queued}
+            say(f'K2 {key}: device {dev_ms:.4f} ms a call with the calls '
+                f'queued behind a sleep kernel (queued: {queued}); the '
+                f'host {host_ms:.4f} ms a call to queue one')
+            del preds, labels
+    return max(errs), {'families': table, 'device': device}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -996,7 +1229,7 @@ def _zoo_card_vs_cpu(name, variables, kw, samples, build=None):
     return first, rel, max(dw, de)[0]
 
 
-def phase_zoo(dev, card, eval_imgs, eval_msks):
+def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
     """Each model of ZOO: SegTrainer(cfg).run() from the trainer's default
     weights (the initializers of Flax's model.init) at 512x1024 bs16 bf16
     (SGD OneCycle, EMA, OHEM) for 1 epoch of 3 steps and a validation of 16
@@ -1004,8 +1237,10 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
     K1 and K2 on the EMA model's logits of a val batch against their plain
     versions; 3 float32 steps card vs CPU; the step's times, its profile,
     peak memory and the eval step at 1024x2048 with K1 and K2 timed on the
-    model's logits. A model whose logits come at full resolution takes the
-    eval step's identity-size argmax: K1 is not launched for it."""
+    model's logits (and the baseline K2, `baseline`, in turns, where
+    built). A model
+    whose logits come at full resolution takes the eval step's
+    identity-size argmax: K1 is not launched for it."""
     from rtseg_tpu_torch.models import get_model
     from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
@@ -1111,8 +1346,9 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
               f'{name} K2 differs from its plain version at {H}x{W}')
         k1_ms = time_ms(lambda: resize_argmax(low, (H, W))) \
             if stride > 1 else None
-        k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, eval_msks, C,
-                                                        IGNORE))
+        k2_ms, k2_base = k2_turns(
+            lambda: confusion_matrix_pallas(preds, eval_msks, C, IGNORE),
+            (lambda: baseline(preds, eval_msks, C)) if baseline else None)
         k1_text = (f'K1 {k1_ms:.4f} ms on {tuple(low.shape)}' if k1_ms
                    else f'no K1 (logits {tuple(low.shape)} at full size)')
         del low, preds
@@ -1124,12 +1360,15 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
             f'before it); run() {wall:.3f} s cold; eval step at {H}x{W} '
             f'{eval_ms:.3f} ms = {B / eval_ms * 1e3:.2f} imgs/s; on its '
             f'logits {k1_text} (mismatch {rate:.3e} against the float32 '
-            f'plain version), K2 {k2_ms:.4f} ms (bit-equal); this model\'s '
+            f'plain version), K2 {k2_ms:.4f} ms (bit-equal'
+            + (f'; the baseline K2 {k2_base:.4f} ms' if k2_base else '')
+            + f'); this model\'s '
             f'checks and times took {time.perf_counter() - t_model:.1f} s')
         out[name] = {'step_ms': step_ms, 'parts_ms': parts.tolist(),
                      'peak_bytes': peak, 'run_cold_s': wall,
                      'eval_ms': eval_ms, 'logits_stride': stride,
-                     'k1_ms': k1_ms, 'k2_ms': k2_ms, 'profile': profile,
+                     'k1_ms': k1_ms, 'k2_ms': k2_ms, 'k2_baseline_ms': k2_base,
+                     'profile': profile,
                      'card_vs_cpu_first_loss': cpu_first,
                      'card_vs_cpu_loss': cpu_rel,
                      'card_vs_cpu_weights': cpu_abs,
@@ -1291,7 +1530,7 @@ def phase_import(dev):
 
 # ------------------------------------------------------------------ phase 8
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
-                k2_err, sass):
+                k2_err, sass, k2_table, baseline=None):
     import torch.nn.functional as F
     from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
@@ -1369,7 +1608,9 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                                B * (H // 2) * C * W * 4 + B * H * W * C * 3)
     del xh
 
-    k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, msks, C, IGNORE))
+    k2_ms, k2_base = k2_turns(
+        lambda: confusion_matrix_pallas(preds, msks, C, IGNORE),
+        (lambda: baseline(preds, msks, C)) if baseline else None)
     k2_plain = time_ms(lambda: confusion_matrix_plain(preds, msks, C, IGNORE),
                        iters=5)
     t, p = msks.reshape(-1).long(), preds.reshape(-1).long()
@@ -1420,7 +1661,8 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
             f'the SASS count)')
     say(f'times (ms): K2 {k2_ms:.4f}, plain {k2_plain:.4f}, torch.bincount '
         f'{k2_lib:.4f}, bound {k2_bound:.4f} ({k2_by}), '
-        f'{k2_bound / k2_ms:.1%} of the bound reached')
+        f'{k2_bound / k2_ms:.1%} of the bound reached'
+        + (f'; the baseline K2 {k2_base:.4f}' if k2_base else ''))
     n_batches = len(trainer.val_loader)
     say(f'slice eval step on a resident batch: {step_ms:.3f} ms = '
         f'{B / step_ms * 1e3:.2f} imgs/s (model forward {fwd_ms:.3f} ms, '
@@ -1453,7 +1695,8 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
          'replaces': 'rtseg_tpu/ops/pallas_metrics.py:66',
          'launches': launches['confusion_matrix'],
          'max_abs_err': k2_err, 'ms': k2_ms, 'plain_ms': k2_plain,
-         'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': k2_lib},
+         'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': k2_lib,
+         'baseline_ms': k2_base, **k2_table},
     ]
 
 
@@ -1474,15 +1717,15 @@ def main() -> int:
         say(f'elapsed {time.perf_counter() - start:.1f} s at the end of '
             f'phase {phase}')
 
-    card, sass = phase_card_and_build()
+    card, sass, baseline = phase_card_and_build()
     k1_err = phase_k1(dev)
-    k2_err = phase_k2(dev)
+    k2_err, k2_table = phase_k2(dev, baseline)
     elapsed('1-3 (build, K1, K2)')
     trainer, imgs, msks, preds, launches, wall = phase_slice(dev)
     elapsed('4 (eval slice)')
     train_launches, train = phase_train(dev, card)
     elapsed('5 (train)')
-    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks)
+    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks, baseline)
     elapsed('6 (zoo)')
     imports = phase_import(dev)
     launches = {k: v + train_launches[k] + zoo_launches[k]
@@ -1493,7 +1736,7 @@ def main() -> int:
             'confusion_matrix': 6 + 2 * len(ZOO)}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
-                          k1_err, k2_err, sass)
+                          k1_err, k2_err, sass, k2_table, baseline)
     elapsed('7-8 (import, times)')
     say(json.dumps({'train': train}))
     say(json.dumps({'zoo': zoo}))

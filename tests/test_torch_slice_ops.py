@@ -182,16 +182,72 @@ def _cm_inputs(seed, C, shape=(2, 64, 128)):
     return preds, labels
 
 
+STREET_SHARES = (0.37, 0.23, 0.16, 0.07, 0.06, 0.04)
+
+
+def _other_class(rng, cls, C):
+    return (cls + rng.randint(1, C, cls.shape)) % C
+
+
+def _cm_family(family, C=19, seed=0, shape=(2, 64, 128)):
+    """(preds, labels) of one input family of the confusion-matrix kernel,
+    at a small size: 'uniform' random with ignored and out-of-range values;
+    'synthetic' 8x8 cells (data/synthetic.py) with predictions right on 90%
+    of the cells; 'street' a class field at 1/32 resolution with a
+    street-scene skew (shares STREET_SHARES, the rest even over the other
+    classes), about 10% ignored (a bottom band and random cells) and
+    predictions right on 90% of the cells; 'one_key' one (label,
+    prediction) everywhere."""
+    rng = np.random.RandomState(seed)
+    b, h, w = shape
+    if family == 'uniform':
+        return _cm_inputs(seed, C, shape)
+    if family == 'one_key':
+        return np.zeros(shape, np.int32), np.zeros(shape, np.int32)
+    cell = 8 if family == 'synthetic' else 32
+    field = (b, h // cell, w // cell)
+    if family == 'synthetic':
+        lab = rng.randint(0, C, field)
+    else:
+        rest = (1 - sum(STREET_SHARES)) / (C - len(STREET_SHARES))
+        shares = list(STREET_SHARES) + [rest] * (C - len(STREET_SHARES))
+        lab = rng.choice(C, field, p=np.asarray(shares) / sum(shares))
+    pred = np.where(rng.rand(*field) < 0.1, _other_class(rng, lab, C), lab)
+    if family == 'street':
+        lab = np.where(rng.rand(*field) < 0.05, 255, lab)
+        lab[:, -max(1, field[1] // 16):] = 255       # the bottom band
+    up = lambda a: a.repeat(cell, 1).repeat(cell, 2).astype(np.int32)
+    return up(pred), up(lab)
+
+
+# the four input families, and uniform maps of odd length and as views
+# that start 1 and 3 elements into their storage
+CM_CASES = ('uniform', 'synthetic', 'street', 'one_key', 'odd', 'offset')
+
+
+@pytest.mark.parametrize('case', CM_CASES)
 @pytest.mark.parametrize('label_dtype', [np.int32, np.int64])
-def test_confusion_matrix_plain_bit_equal_to_jax_kernel(label_dtype):
+def test_confusion_matrix_plain_bit_equal_to_jax_kernel(label_dtype, case):
     C = 19
-    preds, labels = _cm_inputs(0, C)
-    labels = labels.astype(label_dtype)
+    shape = (2, 128, 256) if case == 'street' else (2, 64, 128)
+    preds, labels = _cm_family(case if case in CM_CASES[:4] else 'uniform',
+                               C, shape=shape)
+    preds, labels = preds.reshape(-1), labels.astype(label_dtype).reshape(-1)
+    if case == 'odd':
+        preds, labels = preds[:-7], labels[:-7]
     want = np.asarray(j_cm(jnp.asarray(preds), jnp.asarray(labels), C, 255))
+    tp, tl = _t(preds), _t(labels)
+    if case == 'offset':
+        n = tp.numel()
+        tp = torch.cat([tp[:3], tp])[3:]
+        tl = torch.cat([tl[:1], tl])[1:]
+        assert (tp.storage_offset(), tl.storage_offset()) == (3, 1)
+        assert tp.is_contiguous() and tl.is_contiguous() and tp.numel() == n
     for fn in (confusion_matrix, confusion_matrix_pallas):
-        got = fn(_t(preds), _t(labels), C, 255)
+        got = fn(tp, tl, C, 255)
         assert got.dtype == torch.int32 and tuple(got.shape) == (C, C)
         np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
 
 
 def test_confusion_matrix_rejects_non_integer_types_on_cuda_path():
