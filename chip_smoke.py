@@ -4,9 +4,7 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a),
-     and the baseline K2 beside them where the first port's
-     confusion_matrix.cu is unpacked at BASELINE_TREE (BASELINE_SHA256);
+  1. the card's name and power limit; build the CUDA kernels (nvcc, sm_90a);
      count the SASS instructions of K1's row loop (cuobjdump)
   2. K1 (fused upsample+argmax) against its plain version at the slice's
      shapes, [16,128,256,19] -> 1024x2048, in float32 and bfloat16 (and
@@ -22,9 +20,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      input families (k2_family: uniform random, the synthetic dataset's
      8x8 cells, street-like, one key) at [16,1024,2048] and [16,512,1024]
      with int32 and int64 labels, on offset views, odd n, C=1 and C=241;
-     its time on each family and shape beside the bound and the baseline
-     K2 (in turns, where built), and its device time a call with the calls
-     queued behind a sleep kernel beside the host's time a call
+     its time on each family and shape beside the bound, and its device
+     time a call with the calls queued behind a sleep kernel beside the
+     host's time a call
   4. the slice: SegTrainer(cfg).validate() of BiSeNetv2 (aux heads, 19
      classes, bf16) on synthetic 1024x2048 data, bs16, 3 batches, with the
      kernels' launch counts read around the run; build_predict_step once;
@@ -52,24 +50,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      FPENet, ESPNet, ESPNetv2, CGNet, RegSeg and DFANet, and the six of
      the channel shuffle, dropout and the 2x2 argmax pool, LEDNet, AGLNet,
      Lite-HRNet, ENet, MiniNet and SegNet (their dropout masks from the
-     train step's generator on the card),
+     train step's generator on the card), and the smp hub's nine decoders
+     on ResNet-18 (Unet, Unet++, LinkNet, FPN, MAnet, PAN, PSPNet,
+     DeepLabV3, DeepLabV3+) and FPN on MiT-b2,
      SegTrainer(cfg).run() from the trainer's default (Flax) init at
      512x1024 bs16 bf16 (OHEM, SGD under OneCycle, EMA) for 1 epoch of 3
      steps with its validation and val_best() through K1 and K2 (launch
      counts read around the run: the logits of LinkNet, CANet, ERFNet,
-     ESNet, FDDWNet, FSSNet, SQNet, ADSCNet, ESPNet, ENet, MiniNet and
-     SegNet come at full resolution, so they launch K1 no time and K2 once
-     a val batch); K1
+     ESNet, FDDWNet, FSSNet, SQNet, ADSCNet, ESPNet, ENet, MiniNet, SegNet
+     and smp's Unet, Unet++, LinkNet and MAnet come at full resolution, so
+     they launch K1 no time and K2 once a val batch); K1
      and K2 on the EMA model's logits of the val batch against their
      plain versions; float32 train steps on the card (deterministic
-     cuDNN) against the CPU path at 64x128 (3 steps of 4 distinct
-     samples, or as `ZOO` and `ZOO_SMALL_RUN` set them; the same dropout
-     masks on both, drawn on the CPU), with STDC's
+     cuDNN) against the CPU path at 64x128 (128x128 for PAN; 3 steps of
+     4 distinct samples, or as `ZOO` and `ZOO_SMALL_RUN` set them; the
+     same dropout and drop-path masks on both, drawn on the CPU), with
+     STDC's
      detail_conv (no gradient) moved by weight decay as on the CPU; the
      train step's time, split and peak memory, and the profile of the
-     models new in this slice (PROFILED); the eval step at 1024x2048 and
-     K1, K2 timed on each model's logits there (and the baseline K2, in
-     turns)
+     models new in this slice (PROFILED); the eval step at 1024x2048, its
+     peak memory (a line of its own for MiT-b2), and K1, K2 timed on each
+     model's logits there
+  6b. KD (phase_kd): the reference README's pair, a ResNet-101 DeepLabV3+
+     teacher whose run() (1 epoch of 3 steps at 512x1024 bs16 bf16, its
+     validation and val_best) writes the checkpoint that a ResNet-18
+     DeepLabV3+ student's run() with kd_training (KL, T 4, coefficient 1)
+     loads as its frozen teacher, launch counts read around both; the
+     teacher unchanged, outside the optimizer and the checkpoints; K1 and
+     K2 on the student's logits; float32 KD steps card against CPU (first
+     loss and loss_kd within 1e-5, weights within 1e-3); the student's
+     step with and without KD, the teacher's forward alone, the student's
+     eval step at 1024x2048
   7. import: a random torchvision-named ResNet-18 and MobileNetV2
      state_dict, written to a temp dir, imported through
      config.backbone_ckpt by SegTrainer on the card into SwiftNet and
@@ -81,11 +92,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 [16,512,1024,19] -> 1024x2048; K1 at several class
      counts (each checked); the slice's imgs/s; K1's row loop at the
      issue rate, from its SASS (phase 1)
-  9. the {"train": ...}, {"zoo": ...} and {"import": ...} lines, and the
-     {"kernels": [...]} line, whose launch counts are those of the eval
-     slice (phase 4), the train run (phase 5) and the zoo's runs (phase 6)
-     together, checked exactly against the counts `ZOO` gives: K1 52,
-     K2 76;
+  9. the {"train": ...}, {"zoo": ...}, {"kd": ...} and {"import": ...}
+     lines, and the {"kernels": [...]} line, whose launch counts are those
+     of the eval slice (phase 4), the train run (phase 5), the zoo's runs
+     (phase 6) and the KD runs (phase 6b) together, checked exactly
+     against the counts `ZOO` and the KD pair give: K1 68, K2 100;
   10. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -93,6 +104,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -155,10 +167,8 @@ def phase_card_and_build():
     say(f'card: {card}')
     from rtseg_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    baseline = _start_baseline_k2_build(cuda_build)
     logs = cuda_build.build(force=True, ptxas_verbose=True)
     say(f'build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s')
-    baseline = _finish_baseline_k2_build(baseline)
     for name, log in logs.items():
         regs, spills, fn, mine = [], 0, '', None
         for line in log.splitlines():
@@ -175,69 +185,7 @@ def phase_card_and_build():
         say(f'  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} '
             f'registers, {spills} bytes of spill stores'
             + (f'; bf16 C={C}: {mine} registers' if mine else ''))
-    return card, _sass_row_loop(cuda_build), baseline
-
-
-def _start_baseline_k2_build(cuda_build):
-    """Start nvcc on the baseline's confusion_matrix.cu where its tree is
-    unpacked at BASELINE_TREE (git-ignored; absent in a plain checkout) and
-    the source is the first port's (BASELINE_SHA256). Returns (process,
-    library), or None, saying why."""
-    import hashlib
-    src = BASELINE_TREE / 'rtseg_tpu_torch/ops/csrc/confusion_matrix.cu'
-    if not src.exists():
-        say(f'baseline K2: {BASELINE_TREE} absent, not timed')
-        return None
-    if hashlib.sha256(src.read_bytes()).hexdigest() != BASELINE_SHA256:
-        say(f'baseline K2: {src} is not the first port\'s kernel, not '
-            f'timed')
-        return None
-    lib = cuda_build.library_path('confusion_matrix_baseline')
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-o', str(lib),
-           str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), lib
-
-
-def _finish_baseline_k2_build(started):
-    """The baseline K2, the first port's kernel (one pixel a thread, a
-    warp's keys grouped by __match_any_sync, one histogram a block), called
-    as its wrapper called it (int32 maps, a zeroed output, 8 blocks of 256
-    threads an SM at most, the device's properties read every call), or
-    None where it was not built. It only reports: a failed build, launch or
-    count is said and never fails the run."""
-    if started is None:
-        return None
-    proc, lib = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        say(f'baseline K2: nvcc failed, not timed:\n{log}')
-        return None
-    import ctypes
-    fn = ctypes.CDLL(str(lib)).rtseg_confusion_matrix
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def baseline_k2(preds, labels, num_class, ignore_index=IGNORE):
-        props = torch.cuda.get_device_properties(preds.device)
-        t = labels.reshape(-1).to(torch.int32)
-        p = preds.reshape(-1).to(torch.int32)
-        n = t.numel()
-        out = torch.zeros((num_class, num_class), dtype=torch.int32,
-                          device=preds.device)
-        blocks = max(1, min(-(-n // 256), props.multi_processor_count * 8))
-        stream = torch.cuda.current_stream(preds.device).cuda_stream
-        rc = fn(t.data_ptr(), p.data_ptr(), n, num_class, ignore_index,
-                out.data_ptr(), blocks, stream)
-        if rc:
-            say(f'baseline K2: CUDA error {rc} at launch')
-        return out
-
-    say(f'baseline K2: built from {BASELINE_TREE}')
-    return baseline_k2
+    return card, _sass_row_loop(cuda_build)
 
 
 def _sass_row_loop(cuda_build):
@@ -411,14 +359,6 @@ def phase_k1(dev):
 K2_SHAPES = ((B, H, W), (B, TRAIN_H, TRAIN_W))
 K2_FAMILIES = ('uniform', 'synthetic', 'street', 'one_key')
 STREET_SHARES = (0.37, 0.23, 0.16, 0.07, 0.06, 0.04)
-# an earlier tree (`git archive` of a parent commit), git-ignored: where
-# its confusion_matrix.cu is the first port's (one pixel a thread, keys
-# grouped by __match_any_sync; its sha256 below), that K2 is built and
-# timed beside this one, in turns. Another source is not built: its C entry
-# need not take the arguments `_finish_baseline_k2_build` passes.
-BASELINE_TREE = Path(__file__).resolve().parent / '_checkout' / 'parent'
-BASELINE_SHA256 = ('0a962a1e615e91bf750a8d749b733bad'
-                   '599848db9ab50362dd63cf9cced12e60')
 
 
 def k2_family(family, shape, dev, seed=1, num_class=C):
@@ -478,15 +418,6 @@ def _offset_view(x, offset):
     return base[offset:]
 
 
-def k2_turns(new, old, iters=20):
-    """Mean ms of a call of `new` and of `old` (None: not timed), in turns
-    old, new, new, old (CUDA events after warm-up)."""
-    if old is None:
-        return time_ms(new, iters), None
-    o1, n1, n2, o2 = (time_ms(f, iters) for f in (old, new, new, old))
-    return (n1 + n2) / 2, (o1 + o2) / 2
-
-
 def queued_ms(fn, iters=50):
     """(device ms a call, host ms a call, queued) of `fn`: its calls are
     queued behind a long sleep kernel, so the events around them time the
@@ -509,15 +440,13 @@ def queued_ms(fn, iters=50):
     return start.elapsed_time(end) / iters, host, queued
 
 
-def phase_k2(dev, baseline=None):
+def phase_k2(dev):
     """K2 bit-equal to its plain version on the input families at both
     shapes (int32 and int64 labels), on offset views (the same offset:
     a scalar head; other offsets: scalar loads throughout), on odd n, at
     C=1 and C=241 and on one cell past 2^24; then its time on each family
-    and shape beside the baseline K2 (`baseline`, in turns) and the bound,
-    and
-    its device time a call with the calls queued behind a long kernel,
-    beside the host's time a call."""
+    and shape beside the bound, and its device time a call with the calls
+    queued behind a long kernel, beside the host's time a call."""
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
                                                     confusion_matrix_plain)
 
@@ -531,9 +460,6 @@ def phase_k2(dev, baseline=None):
         err = int((got.long() - ref.long()).abs().max())
         check(torch.equal(got, ref), f'K2 differs from bincount ({what}): '
                                      f'max abs {err}')
-        if baseline is not None and not torch.equal(
-                baseline(preds, labels, num_class), ref):
-            say(f'baseline K2 differs from bincount ({what})')
         errs.append(err)
         return int(got.sum())
 
@@ -554,19 +480,16 @@ def phase_k2(dev, baseline=None):
                          f'{family} {shape} views at offsets {po} and 1')
                 same(preds.reshape(-1)[:n - 7], labels.reshape(-1)[:n - 7],
                      f'{family} {shape} n - 7')
-            ms, old = k2_turns(
-                lambda: confusion_matrix_pallas(preds, labels, C, IGNORE),
-                (lambda: baseline(preds, labels, C)) if baseline else None)
+            ms = time_ms(
+                lambda: confusion_matrix_pallas(preds, labels, C, IGNORE))
             table.setdefault(family, {})[f'{shape[1]}x{shape[2]}'] = {
-                'ms': ms, 'baseline_ms': old, 'bound_ms': bound,
+                'ms': ms, 'bound_ms': bound,
                 'bound_by': by, 'share_of_bound': bound / ms,
                 'counted': total}
             say(f'K2 {family} [{shape[0]},{shape[1]},{shape[2]}]: bit-equal '
                 f'(int32, int64 labels{", views, odd n" if edges else ""}), '
                 f'{total} counted; {ms:.4f} ms, {bound / ms:.1%} of the '
-                f'{bound:.4f} ms bound ({by})'
-                + (f'; the baseline K2 {old:.4f} ms ({old / ms:.3f}x)'
-                   if old else ''))
+                f'{bound:.4f} ms bound ({by})')
             del preds, labels
     g = torch.Generator(device=dev).manual_seed(3)
     shape = K2_SHAPES[0]
@@ -754,7 +677,8 @@ def _card_vs_cpu_runs(variables, devices, build=None, **kw):
             trainer_mod.get_model = registry
         # the same dropout masks on every device: drawn on the CPU
         t.train_step = build_train_step(
-            t.config, dropout_masks=lambda k: cpu_dropout_masks(t.config, k))
+            t.config, dropout_masks=lambda k: cpu_dropout_masks(t.config, k),
+            teacher=t.teacher)
         t.train_loader.set_epoch(0)
         losses = []
         for imgs, msks in t.train_loader:
@@ -837,7 +761,7 @@ def _step_times(trainer, cfg, imgs, msks):
     from rtseg_tpu_torch.train.step import _make_forward_loss
     st, step = trainer.state, trainer.train_step
     masks = DropoutMasks(torch.Generator(device=imgs.device).manual_seed(0))
-    forward_loss = _make_forward_loss(cfg)
+    forward_loss = _make_forward_loss(cfg, trainer.teacher)
     step_ms = time_ms(lambda: step(st, imgs, msks), iters=5, warmup=2)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1046,6 +970,10 @@ def phase_train(dev, card):
 # bf16 maps, as Flax's do); the six of the shuffle, dropout and argmax-pool
 # ops, LEDNet's logits at 1/8, Lite-HRNet's at 1/4 (litehrnet18),
 # AGLNet's at 1/2, and ENet's, MiniNet's and SegNet's at full size
+def _smp(encoder: str, decoder: str) -> dict:
+    return dict(model='smp', encoder=encoder, decoder=decoder, use_aux=False)
+
+
 ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('DDRNet-23-slim', dict(model='ddrnet', use_aux=True), 8, 4),
        ('STDC1', dict(model='stdc', use_aux=False, use_detail_head=True), 8,
@@ -1081,7 +1009,17 @@ ZOO = (('FastSCNN', dict(model='fastscnn', use_aux=False), 8, 4),
        ('Lite-HRNet', dict(model='lite_hrnet', use_aux=False), 4, 16),
        ('ENet', dict(model='enet', use_aux=False), 1, 4),
        ('MiniNet', dict(model='mininet', use_aux=False), 1, 4),
-       ('SegNet', dict(model='segnet', use_aux=False), 1, 4))
+       ('SegNet', dict(model='segnet', use_aux=False), 1, 4),
+       ('smp Unet', _smp('resnet18', 'unet'), 1, 4),
+       ('smp Unet++', _smp('resnet18', 'unetpp'), 1, 4),
+       ('smp LinkNet', _smp('resnet18', 'linknet'), 1, 4),
+       ('smp FPN', _smp('resnet18', 'fpn'), 4, 4),
+       ('smp MAnet', _smp('resnet18', 'manet'), 1, 4),
+       ('smp PAN', _smp('resnet18', 'pan'), 4, 16),
+       ('smp PSPNet', _smp('resnet18', 'pspnet'), 8, 4),
+       ('smp DeepLabV3', _smp('resnet18', 'deeplabv3'), 8, 4),
+       ('smp DeepLabV3+', _smp('resnet18', 'deeplabv3p'), 4, 4),
+       ('smp FPN MiT-b2', _smp('mit_b2', 'fpn'), 4, 4))
 
 
 # (constructor switches, steps) of a model's card-against-CPU train run
@@ -1102,16 +1040,28 @@ ZOO_FLAX_INIT = ('dfanet',)
 # the zoo models whose train step torch.profiler reads: those new in this
 # slice (the earlier ones' profiles are in PERF.md from their slices; the
 # pass is dropped for them to keep the script near its time)
-PROFILED = ('LEDNet', 'AGLNet', 'Lite-HRNet', 'ENet', 'MiniNet', 'SegNet')
+PROFILED = tuple(name for name, kw, _, _ in ZOO if kw['model'] == 'smp')
+
+
+def zoo_key(kw) -> str:
+    """The key of a zoo model in ZOO_SMALL_RUN and ZOO_FLAX_INIT: its model
+    name, or smp-<encoder>-<decoder> for the hub's models."""
+    if kw['model'] == 'smp':
+        return f"smp-{kw['encoder']}-{kw['decoder']}"
+    return kw['model']
 
 
 def zoo_small_config(kw, samples):
-    """The config switches of a zoo model's card-against-CPU train run."""
-    steps = ZOO_SMALL_RUN.get(kw['model'], ({}, 3))[1]
+    """The config switches of a zoo model's card-against-CPU train run: at
+    64x128, or 128x128 for PAN, whose pool ladder halves the deepest map
+    three times."""
+    steps = ZOO_SMALL_RUN.get(zoo_key(kw), ({}, 3))[1]
+    size = dict(crop_h=128, crop_w=128) if kw.get('decoder') == 'pan' \
+        else {}
     return dict(base_lr=1e-3,
                 weight_decay=0.5 if kw.get('use_detail_head') else 1e-4,
                 train_bs=samples, val_bs=samples,
-                synthetic_len=steps * samples, **kw)
+                synthetic_len=steps * samples, **size, **kw)
 
 
 def zoo_small_variables(kw, model):
@@ -1120,7 +1070,7 @@ def zoo_small_variables(kw, model):
     for the models of ZOO_FLAX_INIT, Flax's initializers."""
     from rtseg_tpu_torch.utils.convert import (flax_init_variables,
                                                random_jax_variables)
-    if kw['model'] in ZOO_FLAX_INIT:
+    if zoo_key(kw) in ZOO_FLAX_INIT:
         return flax_init_variables(model, seed=1)
     return random_jax_variables(model, seed=1)
 
@@ -1129,7 +1079,7 @@ def zoo_small_model(kw):
     """The model builder of a zoo model's card-against-CPU train run: None
     (the registry's, at the model's full depth), or, for the models of
     ZOO_SMALL_RUN, one that builds the model at its cut depth."""
-    cut = ZOO_SMALL_RUN.get(kw['model'], ({}, 3))[0]
+    cut = ZOO_SMALL_RUN.get(zoo_key(kw), ({}, 3))[0]
     if not cut:
         return None
     from rtseg_tpu_torch.models.registry import _PLAIN
@@ -1229,7 +1179,16 @@ def _zoo_card_vs_cpu(name, variables, kw, samples, build=None):
     return first, rel, max(dw, de)[0]
 
 
-def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
+def _eval_peak(step, imgs, msks) -> int:
+    """The peak memory allocated during one eval step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(imgs, msks)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_zoo(dev, card, eval_imgs, eval_msks):
     """Each model of ZOO: SegTrainer(cfg).run() from the trainer's default
     weights (the initializers of Flax's model.init) at 512x1024 bs16 bf16
     (SGD OneCycle, EMA, OHEM) for 1 epoch of 3 steps and a validation of 16
@@ -1237,8 +1196,7 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
     K1 and K2 on the EMA model's logits of a val batch against their plain
     versions; 3 float32 steps card vs CPU; the step's times, its profile,
     peak memory and the eval step at 1024x2048 with K1 and K2 timed on the
-    model's logits (and the baseline K2, `baseline`, in turns, where
-    built). A model
+    model's logits. A model
     whose logits come at full resolution takes the eval step's
     identity-size argmax: K1 is not launched for it."""
     from rtseg_tpu_torch.models import get_model
@@ -1332,6 +1290,11 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
         # the eval step at 1024x2048 and K1, K2 on the model's logits there
         step = build_eval_step(cfg, trainer.ema_model, dev)
         eval_ms = time_ms(lambda: step(eval_imgs, eval_msks), iters=5)
+        eval_peak = _eval_peak(step, eval_imgs, eval_msks)
+        if kw.get('encoder', '').startswith('mit_'):
+            say(f'zoo {name} eval peak memory at {H}x{W} bs{B} ({card}): '
+                f'{eval_peak / 2**30:.3f} GiB (attention in query slices of '
+                f'at most 2^28 elements a call)')
         with torch.inference_mode():
             low = trainer.ema_model(eval_imgs.to(torch.bfloat16),
                                     defer_upsample=True).contiguous()
@@ -1346,9 +1309,8 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
               f'{name} K2 differs from its plain version at {H}x{W}')
         k1_ms = time_ms(lambda: resize_argmax(low, (H, W))) \
             if stride > 1 else None
-        k2_ms, k2_base = k2_turns(
-            lambda: confusion_matrix_pallas(preds, eval_msks, C, IGNORE),
-            (lambda: baseline(preds, eval_msks, C)) if baseline else None)
+        k2_ms = time_ms(
+            lambda: confusion_matrix_pallas(preds, eval_msks, C, IGNORE))
         k1_text = (f'K1 {k1_ms:.4f} ms on {tuple(low.shape)}' if k1_ms
                    else f'no K1 (logits {tuple(low.shape)} at full size)')
         del low, preds
@@ -1358,16 +1320,16 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
             f'optimizer+EMA {parts[2]:.3f} ms; peak memory of a step '
             f'{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated '
             f'before it); run() {wall:.3f} s cold; eval step at {H}x{W} '
-            f'{eval_ms:.3f} ms = {B / eval_ms * 1e3:.2f} imgs/s; on its '
+            f'{eval_ms:.3f} ms = {B / eval_ms * 1e3:.2f} imgs/s, peak '
+            f'memory {eval_peak / 2**30:.3f} GiB; on its '
             f'logits {k1_text} (mismatch {rate:.3e} against the float32 '
-            f'plain version), K2 {k2_ms:.4f} ms (bit-equal'
-            + (f'; the baseline K2 {k2_base:.4f} ms' if k2_base else '')
-            + f'); this model\'s '
+            f'plain version), K2 {k2_ms:.4f} ms (bit-equal); this model\'s '
             f'checks and times took {time.perf_counter() - t_model:.1f} s')
         out[name] = {'step_ms': step_ms, 'parts_ms': parts.tolist(),
                      'peak_bytes': peak, 'run_cold_s': wall,
-                     'eval_ms': eval_ms, 'logits_stride': stride,
-                     'k1_ms': k1_ms, 'k2_ms': k2_ms, 'k2_baseline_ms': k2_base,
+                     'eval_ms': eval_ms, 'eval_peak_bytes': eval_peak,
+                     'logits_stride': stride,
+                     'k1_ms': k1_ms, 'k2_ms': k2_ms,
                      'profile': profile,
                      'card_vs_cpu_first_loss': cpu_first,
                      'card_vs_cpu_loss': cpu_rel,
@@ -1375,6 +1337,253 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, baseline=None):
                      'card_vs_cpu_samples': samples}
         del trainer, step
     return launches, out
+
+
+# ----------------------------------------------------------------- phase 6b
+# the reference README's KD pair: a ResNet-101 DeepLabV3+ teacher (output
+# stride 16) and a ResNet-18 DeepLabV3+ student distilled with the KL
+# divergence at temperature 4, coefficient 1
+KD_TEACHER = _smp('resnet101', 'deeplabv3p')
+KD_STUDENT = dict(_smp('resnet18', 'deeplabv3p'), kd_training=True,
+                  kd_loss_type='kl_div', kd_temperature=4.0,
+                  kd_loss_coefficient=1.0, teacher_encoder='resnet101',
+                  teacher_decoder='deeplabv3p')
+# samples a step and steps of the KD card-against-CPU run
+KD_SMALL = (4, 3)
+
+
+def teacher_checkpoint(save_dir: str, variables) -> str:
+    """A best.ckpt of the KD teacher with `variables`, written into
+    `save_dir`; its path."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.train.checkpoint import save_best_ckpt
+    from rtseg_tpu_torch.train.state import TrainState
+    from rtseg_tpu_torch.utils.convert import load_jax_variables
+    cfg = _train_config(save_dir, **KD_TEACHER)
+    teacher = get_model(cfg)
+    load_jax_variables(teacher, variables)
+    path = str(Path(save_dir) / 'best.ckpt')
+    save_best_ckpt(path, TrainState(0, teacher, None, teacher), 1, 0.0)
+    return path
+
+
+def kd_small_config(teacher_ckpt: str) -> dict:
+    samples, steps = KD_SMALL
+    return dict(zoo_small_config(KD_STUDENT, samples),
+                synthetic_len=steps * samples, teacher_ckpt=teacher_ckpt)
+
+
+def kd_small_variables(seed: int = 1):
+    """The student's and the teacher's weights of the KD card-against-CPU
+    run: the mapping check's draws."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.utils.convert import random_jax_variables
+    return (random_jax_variables(get_model(_train_config(
+                'unused', **KD_STUDENT)), seed=seed),
+            random_jax_variables(get_model(_train_config(
+                'unused', **KD_TEACHER)), seed=seed + 1))
+
+
+def _kd_card_vs_cpu(tmp: str):
+    """KD_SMALL float32 steps of the KD student at 64x128 on the card
+    (deterministic cuDNN) and on the CPU from the same weights and teacher
+    checkpoint, with the same dropout masks (ASPP's): the first step's
+    loss and loss_kd within 1e-5 relative, every step's within 1e-3, the
+    weights and their EMA within 1e-3."""
+    student, teacher = kd_small_variables()
+    ckpt = teacher_checkpoint(str(Path(tmp) / 'small_teacher'), teacher)
+    runs = _card_vs_cpu_runs(student, ('cuda', 'cpu'), **kd_small_config(
+        ckpt))
+    card, cpu = runs['cuda'], runs['cpu']
+    first = _rel_loss(card[0][:1], cpu[0][:1])
+    rel = _rel_loss(card[0], cpu[0])
+    dw = _same_weights(card[1], cpu[1], math.inf)
+    de = _same_weights(card[2], cpu[2], math.inf)
+    say(f'kd small fp32 train, card (deterministic cuDNN) vs CPU, '
+        f'{len(card[0])} steps of {KD_SMALL[0]} samples: {card[0]} vs '
+        f'{cpu[0]}; first step (loss, loss_kd) {first:.2e} relative '
+        f'(tolerance 1e-5), all steps {rel:.2e} (tolerance 1e-3); '
+        f'params+BN statistics {dw[0]:.2e} ({dw[1]}), EMA {de[0]:.2e} '
+        f'({de[1]}); tolerance 1e-3 absolute and relative')
+    check(all('loss_kd' in m for m in card[0] + cpu[0]),
+          'the KD run reports no loss_kd')
+    check(first <= 1e-5, f'KD card vs CPU first-step metrics {first}')
+    check(rel <= 1e-3, f'KD card vs CPU train metrics differ by {rel}')
+    _same_weights(card[1], cpu[1], 1e-3, 'KD params')
+    _same_weights(card[2], cpu[2], 1e-3, 'KD EMA')
+    return first, rel, max(dw, de)[0]
+
+
+def phase_kd(dev, card, eval_imgs, eval_msks):
+    """Knowledge distillation at the README's pair: the teacher's run()
+    (1 epoch of 3 steps at 512x1024 bs16 bf16, a validation and
+    val_best), whose best.ckpt (or, where no validation improved on 0, its
+    final EMA weights) the student's run() loads as its frozen teacher for
+    1 epoch of 3 steps with the KD term, a validation and val_best, all
+    through K1 and K2 with their launch counts read around each run. The
+    teacher's weights are unchanged after the student's run and in neither
+    its optimizer nor its checkpoints. K1 and K2 on the student's EMA
+    logits; the KD card-against-CPU check; the student's step with and
+    without KD, the teacher's forward alone, and the student's eval step at
+    1024x2048."""
+    from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
+                                                    confusion_matrix_plain)
+    from rtseg_tpu_torch.train import (SegTrainer, build_eval_step,
+                                       build_train_step)
+    from rtseg_tpu_torch.train.checkpoint import save_best_ckpt
+    from rtseg_tpu_torch.utils.convert import _flatten, to_jax_variables
+
+    def counted_run(trainer):
+        resize_argmax.launches = 0
+        confusion_matrix_pallas.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {'resize_argmax': resize_argmax.launches,
+               'confusion_matrix': confusion_matrix_pallas.launches}
+        n_val = len(trainer.val_loader)
+        # DeepLabV3+'s logits at 1/4: K1 and K2 a val batch, for the
+        # epoch's validation and val_best's
+        want = {'resize_argmax': 2 * n_val, 'confusion_matrix': 2 * n_val}
+        check(got == want, f'KD launch counts {got} != {want}')
+        check(trainer.state.step == 3 and len(trainer.epoch_losses) == 1
+              and math.isfinite(trainer.epoch_losses[0])
+              and math.isfinite(miou),
+              f'KD run: step {trainer.state.step}, losses '
+              f'{trainer.epoch_losses}, mIoU {miou}')
+        return got, wall, miou
+
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_kd_')
+    try:
+        tdir = str(Path(tmp) / 'teacher')
+        tcfg = _train_config(tdir, synthetic_len=3 * B, total_epoch=1,
+                             **KD_TEACHER)
+        teacher_run = SegTrainer(tcfg)
+        got, t_wall, t_miou = counted_run(teacher_run)
+        for k, v in got.items():
+            launches[k] += v
+        ckpt = str(Path(tdir) / 'best.ckpt')
+        if not (Path(ckpt) / 'state.pt').exists():
+            save_best_ckpt(ckpt, teacher_run.state, 1, teacher_run.best_score)
+        teacher_weights = to_jax_variables(teacher_run.ema_model)
+        del teacher_run
+        say(f'kd teacher: ResNet-101 DeepLabV3+ bf16 run() {t_wall:.3f} s '
+            f'(cold), 3 steps of {B}x{TRAIN_H}x{TRAIN_W}, val_best mIoU '
+            f'{t_miou:.6f}, launches {got}; its EMA weights in {ckpt}')
+
+        scfg = _train_config(str(Path(tmp) / 'student'),
+                             synthetic_len=3 * B, total_epoch=1,
+                             teacher_ckpt=ckpt, **KD_STUDENT)
+        student = SegTrainer(scfg)
+        teacher = student.teacher
+        _same_weights(to_jax_variables(teacher), teacher_weights)
+        t_params = {id(p) for p in teacher.parameters()}
+        opt_params = {id(p) for g in student.state.optimizer.param_groups
+                      for p in g['params']}
+        check(not t_params & opt_params
+              and not any(p.requires_grad for p in teacher.parameters())
+              and not teacher.training
+              and next(teacher.parameters()).device.type == 'cuda',
+              'the teacher is not frozen on the card outside the optimizer')
+        got, s_wall, s_miou = counted_run(student)
+        for k, v in got.items():
+            launches[k] += v
+        _same_weights(to_jax_variables(teacher), teacher_weights)
+        check(not teacher.training, 'the teacher left eval mode')
+        check(len(student.epoch_kd_losses) == 1
+              and math.isfinite(student.epoch_kd_losses[0]),
+              f'KD losses {student.epoch_kd_losses}')
+        own = set(_flatten(to_jax_variables(student.model)))
+        for name in ('last.ckpt', 'best.ckpt'):
+            payload = torch.load(Path(tmp) / 'student' / name / 'state.pt',
+                                 weights_only=True)
+            for key, tree in payload.items():
+                if key != 'step':
+                    leaves = set(_flatten(tree))
+                    check(leaves <= own, f'{name}/{key} holds leaves the '
+                                         f'student has not')
+            check(set(_flatten(payload['variables'])) == own,
+                  f'{name} does not hold the student alone')
+        say(f'kd student: ResNet-18 DeepLabV3+ bf16 with KL KD (T 4, '
+            f'coefficient 1) run() {s_wall:.3f} s (cold), epoch loss '
+            f'{student.epoch_losses}, KD term {student.epoch_kd_losses}, '
+            f'val_best mIoU {s_miou:.6f}, launches {got}; the teacher '
+            f'frozen on the card (no gradient, eval mode, outside the '
+            f'optimizer), its weights unchanged, and the checkpoints hold '
+            f'the student\'s {len(own)} leaves alone')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # K1 and K2 on the student's EMA logits of a val batch
+    imgs, msks = next(iter(student.val_loader))
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    with torch.inference_mode():
+        low = student.ema_model(imgs.to(torch.bfloat16),
+                                defer_upsample=True).contiguous()
+    check(tuple(low.shape) == (B, TRAIN_H // 4, TRAIN_W // 4, C),
+          f'KD student logits {tuple(low.shape)}')
+    preds = resize_argmax(low, (TRAIN_H, TRAIN_W))
+    k1_rate = _rate(preds, _argmax_ref(low.float(), (TRAIN_H, TRAIN_W)))
+    k2_equal = torch.equal(confusion_matrix_pallas(preds, msks, C, IGNORE),
+                           confusion_matrix_plain(preds, msks, C, IGNORE))
+    say(f'kd student: K1 on the EMA model\'s logits {tuple(low.shape)}: '
+        f'mismatch {k1_rate:.3e} against the float32 plain version '
+        f'(tolerance 1e-4); K2 bit-equal {k2_equal}')
+    check(k1_rate <= 1e-4, f'KD student K1 mismatch {k1_rate}')
+    check(k2_equal, 'KD student K2 differs from its plain version')
+    del low, preds
+
+    small_tmp = tempfile.mkdtemp(prefix='chip_smoke_kd_small_')
+    try:
+        cpu_first, cpu_rel, cpu_abs = _kd_card_vs_cpu(small_tmp)
+    finally:
+        shutil.rmtree(small_tmp, ignore_errors=True)
+
+    # times on a resident train batch
+    student.train_loader.set_epoch(0)
+    imgs, msks = next(iter(student.train_loader))
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    step_ms, parts, peak, before = _step_times(student, scfg, imgs, msks)
+    plain_cfg = copy.copy(student.config)
+    plain_cfg.kd_training = False
+    plain_step = build_train_step(plain_cfg)
+    plain_ms = time_ms(lambda: plain_step(student.state, imgs, msks),
+                       iters=5, warmup=2)
+    student.model.eval()
+    x = imgs.to(torch.bfloat16)
+    with torch.no_grad():
+        teacher_ms = time_ms(lambda: teacher(x), iters=5, warmup=2)
+    profile = _profile_step(student.train_step, student.state, imgs, msks,
+                            label='kd student')
+    step = build_eval_step(scfg, student.ema_model, dev)
+    eval_ms = time_ms(lambda: step(eval_imgs, eval_msks), iters=5)
+    eval_peak = _eval_peak(step, eval_imgs, eval_msks)
+    with torch.inference_mode():
+        low = student.ema_model(eval_imgs.to(torch.bfloat16),
+                                defer_upsample=True).contiguous()
+    k1_ms = time_ms(lambda: resize_argmax(low, (H, W)))
+    del low
+    say(f'kd times ({card}): student step with KD {step_ms:.3f} ms = '
+        f'{B / step_ms * 1e3:.2f} imgs/s (split forward+loss with the '
+        f'teacher {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, '
+        f'optimizer+EMA {parts[2]:.3f} ms; peak memory '
+        f'{peak / 2**30:.3f} GiB, {before / 2**30:.3f} GiB allocated before '
+        f'it); without KD {plain_ms:.3f} ms; the teacher\'s bf16 forward '
+        f'alone {teacher_ms:.3f} ms; KD adds {step_ms - plain_ms:.3f} ms; '
+        f'student eval step at {H}x{W} {eval_ms:.3f} ms, peak '
+        f'{eval_peak / 2**30:.3f} GiB, K1 on its logits {k1_ms:.4f} ms')
+    return launches, {
+        'teacher_run_cold_s': t_wall, 'student_run_cold_s': s_wall,
+        'step_ms': step_ms, 'parts_ms': parts.tolist(), 'peak_bytes': peak,
+        'step_without_kd_ms': plain_ms, 'teacher_forward_ms': teacher_ms,
+        'kd_losses': student.epoch_kd_losses, 'profile': profile,
+        'eval_ms': eval_ms, 'eval_peak_bytes': eval_peak, 'k1_ms': k1_ms,
+        'card_vs_cpu_first_metrics': cpu_first, 'card_vs_cpu_loss': cpu_rel,
+        'card_vs_cpu_weights': cpu_abs}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1530,7 +1739,7 @@ def phase_import(dev):
 
 # ------------------------------------------------------------------ phase 8
 def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
-                k2_err, sass, k2_table, baseline=None):
+                k2_err, sass, k2_table):
     import torch.nn.functional as F
     from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
     from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
@@ -1608,9 +1817,7 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
                                B * (H // 2) * C * W * 4 + B * H * W * C * 3)
     del xh
 
-    k2_ms, k2_base = k2_turns(
-        lambda: confusion_matrix_pallas(preds, msks, C, IGNORE),
-        (lambda: baseline(preds, msks, C)) if baseline else None)
+    k2_ms = time_ms(lambda: confusion_matrix_pallas(preds, msks, C, IGNORE))
     k2_plain = time_ms(lambda: confusion_matrix_plain(preds, msks, C, IGNORE),
                        iters=5)
     t, p = msks.reshape(-1).long(), preds.reshape(-1).long()
@@ -1661,8 +1868,7 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
             f'the SASS count)')
     say(f'times (ms): K2 {k2_ms:.4f}, plain {k2_plain:.4f}, torch.bincount '
         f'{k2_lib:.4f}, bound {k2_bound:.4f} ({k2_by}), '
-        f'{k2_bound / k2_ms:.1%} of the bound reached'
-        + (f'; the baseline K2 {k2_base:.4f}' if k2_base else ''))
+        f'{k2_bound / k2_ms:.1%} of the bound reached')
     n_batches = len(trainer.val_loader)
     say(f'slice eval step on a resident batch: {step_ms:.3f} ms = '
         f'{B / step_ms * 1e3:.2f} imgs/s (model forward {fwd_ms:.3f} ms, '
@@ -1696,7 +1902,7 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
          'launches': launches['confusion_matrix'],
          'max_abs_err': k2_err, 'ms': k2_ms, 'plain_ms': k2_plain,
          'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': k2_lib,
-         'baseline_ms': k2_base, **k2_table},
+         **k2_table},
     ]
 
 
@@ -1717,29 +1923,33 @@ def main() -> int:
         say(f'elapsed {time.perf_counter() - start:.1f} s at the end of '
             f'phase {phase}')
 
-    card, sass, baseline = phase_card_and_build()
+    card, sass = phase_card_and_build()
     k1_err = phase_k1(dev)
-    k2_err, k2_table = phase_k2(dev, baseline)
+    k2_err, k2_table = phase_k2(dev)
     elapsed('1-3 (build, K1, K2)')
     trainer, imgs, msks, preds, launches, wall = phase_slice(dev)
     elapsed('4 (eval slice)')
     train_launches, train = phase_train(dev, card)
     elapsed('5 (train)')
-    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks, baseline)
+    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks)
     elapsed('6 (zoo)')
+    kd_launches, kd = phase_kd(dev, card, imgs, msks)
+    elapsed('6b (KD)')
     imports = phase_import(dev)
-    launches = {k: v + train_launches[k] + zoo_launches[k]
+    launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
                 for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
-    # zoo model (K1 only for those with low-resolution logits)
-    want = {'resize_argmax': 6 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
-            'confusion_matrix': 6 + 2 * len(ZOO)}
+    # zoo model (K1 only for those with low-resolution logits), 2 each for
+    # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits)
+    want = {'resize_argmax': 10 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
+            'confusion_matrix': 10 + 2 * len(ZOO)}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
-                          k1_err, k2_err, sass, k2_table, baseline)
+                          k1_err, k2_err, sass, k2_table)
     elapsed('7-8 (import, times)')
     say(json.dumps({'train': train}))
     say(json.dumps({'zoo': zoo}))
+    say(json.dumps({'kd': kd}))
     say(json.dumps({'import': imports}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {

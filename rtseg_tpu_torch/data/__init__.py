@@ -1,5 +1,6 @@
 """Loader factories (counterpart of rtseg_tpu/data/__init__.py). Only the
-synthetic dataset is ported (see ROADMAP.md Queue 1 item 5)."""
+synthetic dataset is ported (see ROADMAP.md Queue 1, "Trainer, checkpoint and
+data")."""
 
 from .loader import BatchLoader, check_dataset, get_val_loader
 from .synthetic import Synthetic

@@ -1,10 +1,9 @@
-"""Loss factory (counterpart of rtseg_tpu/losses/__init__.py). Ported:
-cross-entropy, OHEM cross-entropy, and the STDC detail loss with
-`laplacian_pyramid`. The KD loss comes with KD (ROADMAP.md Queue 1 item
-4)."""
+"""Loss factory (counterpart of rtseg_tpu/losses/__init__.py):
+cross-entropy, OHEM cross-entropy, the STDC detail loss with
+`laplacian_pyramid`, and the KD loss."""
 
 from .losses import (bce_with_logits, cross_entropy, detail_loss, dice_loss,
-                     laplacian_pyramid, ohem_cross_entropy)
+                     kd_loss, laplacian_pyramid, ohem_cross_entropy)
 
 
 def get_loss_fn(config):
@@ -32,6 +31,15 @@ def get_detail_loss_fn(config):
     return fn
 
 
+def get_kd_loss_fn(config):
+    """loss(student logits, teacher logits) for config.kd_loss_type at
+    config.kd_temperature."""
+    def fn(student_logits, teacher_logits):
+        return kd_loss(student_logits, teacher_logits, config.kd_loss_type,
+                       config.kd_temperature)
+    return fn
+
+
 __all__ = ['bce_with_logits', 'cross_entropy', 'detail_loss', 'dice_loss',
-           'laplacian_pyramid', 'ohem_cross_entropy', 'get_loss_fn',
-           'get_detail_loss_fn']
+           'kd_loss', 'laplacian_pyramid', 'ohem_cross_entropy',
+           'get_loss_fn', 'get_detail_loss_fn', 'get_kd_loss_fn']

@@ -19,6 +19,9 @@ package's arithmetic, so the port's training loss is the JAX package's:
     the device: no value is read back to the host.
   * detail_loss is dice (on raw logits, as the reference computes it) plus
     binary cross-entropy with logits, both in float32.
+  * kd_loss is the distillation term: the JAX package's formula for
+    'kl_div' written out (F.kl_div treats zero probabilities otherwise),
+    or the plain mean squared difference of the logits ('mse').
 """
 
 from __future__ import annotations
@@ -129,6 +132,26 @@ def detail_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 _LAPLACIAN = ((-1., -1., -1.), (-1., 8., -1.), (-1., -1., -1.))
+
+
+def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+            kd_type: str = 'kl_div', temperature: float = 4.0
+            ) -> torch.Tensor:
+    """Distillation loss over NHWC logits, in float32. 'mse': the mean of
+    the squared differences. Any other type, as in the JAX package:
+    T^2 * mean(softmax(t/T) * (log(clip(softmax(t/T), 1e-12))
+    - log_softmax(s/T))), the mean over every element, the class axis
+    included (torch F.kl_div's 'mean' reduction, which the reference
+    uses)."""
+    s = student_logits.float()
+    t = teacher_logits.float()
+    if kd_type == 'mse':
+        return torch.mean((s - t) ** 2)
+    T = temperature
+    log_s = F.log_softmax(s / T, dim=-1)
+    p_t = F.softmax(t / T, dim=-1)
+    pointwise = p_t * (torch.log(torch.clamp(p_t, min=1e-12)) - log_s)
+    return (T * T) * torch.mean(pointwise)
 
 
 def laplacian_pyramid(masks: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ from .liteseg import LiteSeg
 from .mininet import MiniNet
 from .mininetv2 import MiniNetv2
 from .pp_liteseg import PPLiteSeg
-from .registry import PORTED, get_model
+from .registry import PORTED, get_model, get_teacher_model
 from .regseg import RegSeg
 from .segnet import SegNet
 from .shelfnet import ShelfNet
@@ -39,7 +39,8 @@ from .swiftnet import SwiftNet
 __all__ = ['ADSCNet', 'AGLNet', 'BiSeNetv1', 'BiSeNetv2', 'CANet', 'CFPNet',
            'CGNet', 'ContextNet', 'DABNet', 'DDRNet', 'DFANet', 'EDANet',
            'ENet', 'ERFNet', 'ESNet', 'ESPNet', 'ESPNetv2', 'FarSeeNet',
-           'FastSCNN', 'FDDWNet', 'FPENet', 'FSSNet', 'get_model', 'ICNet',
+           'FastSCNN', 'FDDWNet', 'FPENet', 'FSSNet', 'get_model',
+           'get_teacher_model', 'ICNet',
            'InitialBlock', 'LEDNet', 'LinkNet', 'LiteHRNet', 'LiteSeg',
            'MiniNet', 'MiniNetv2', 'PORTED', 'PPLiteSeg', 'RegSeg', 'SegNet',
            'ShelfNet', 'SQNet', 'STDC', 'SwiftNet']

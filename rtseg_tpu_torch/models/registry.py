@@ -5,11 +5,13 @@ AGLNet, BiSeNetv1, BiSeNetv2, CANet, CFPNet, CGNet, ContextNet, DABNet,
 DDRNet, DFANet, EDANet, ENet, ERFNet, ESNet, ESPNet, ESPNetv2, FarSeeNet,
 FastSCNN, FDDWNet, FPENet, FSSNet, ICNet, LEDNet, LinkNet, Lite-HRNet
 (litehrnet18), LiteSeg, MiniNet, MiniNetv2, PP-LiteSeg, RegSeg, SegNet,
-ShelfNet, SQNet, STDC and SwiftNet, each at its JAX registry defaults.
-The `smp` encoder-decoder hub raises NotImplementedError, and ROADMAP.md
-says when it comes.
+ShelfNet, SQNet, STDC and SwiftNet, each at its JAX registry defaults,
+and `model='smp'`, the encoder-decoder hub (models/smp.py) on
+config.encoder and config.decoder, which also builds the KD teacher
+(`get_teacher_model`).
 Aux heads are built only for the aux models and the detail head only for
-the detail models; asking either of another model raises ValueError.
+the detail models; asking either of another model, `smp` included (whose
+JAX step would fail later, unpacking the one output), raises ValueError.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from .pp_liteseg import PPLiteSeg
 from .regseg import RegSeg
 from .segnet import SegNet
 from .shelfnet import ShelfNet
+from .smp import SMP_DECODERS, build_smp_model
 from .sqnet import SQNet
 from .stdc import STDC
 from .swiftnet import SwiftNet
@@ -72,7 +75,7 @@ def get_model(config, device=None):
     """Build the port's module for config.model with parameters on
     `device` (uninitialized: load weights with utils.convert)."""
     name = config.model
-    if name not in PORTED:
+    if name != 'smp' and name not in PORTED:
         raise NotImplementedError(
             f'Model {name!r} is not ported to PyTorch yet (ported: '
             f'{", ".join(PORTED)}); see ROADMAP.md Queue 1')
@@ -81,6 +84,9 @@ def get_model(config, device=None):
     if config.use_detail_head and name not in DETAIL_HEAD_MODELS:
         raise ValueError(f'Model {name} does not support detail heads.')
     nc = config.num_class
+    if name == 'smp':
+        return build_smp_model(config.encoder, config.decoder, nc,
+                               device=device)
     if name == 'bisenetv2':
         return BiSeNetv2(num_class=nc, use_aux=config.use_aux,
                          detail_remat=config.detail_remat,
@@ -103,3 +109,16 @@ def get_model(config, device=None):
         return SegNet(num_class=nc, pack_fullres=config.segnet_pack,
                       device=device)
     return _PLAIN[name](num_class=nc, device=device)
+
+
+def get_teacher_model(config, device=None):
+    """The frozen KD teacher (an smp model on config.teacher_encoder and
+    config.teacher_decoder, uninitialized: the trainer loads
+    config.teacher_ckpt), or None without kd_training."""
+    if not config.kd_training:
+        return None
+    if config.teacher_decoder not in SMP_DECODERS:
+        raise ValueError(
+            f'Unsupported teacher decoder type: {config.teacher_decoder}')
+    return build_smp_model(config.teacher_encoder, config.teacher_decoder,
+                           config.num_class, device=device)

@@ -11,9 +11,14 @@ activation type for each call (bf16 activations run bf16 convs with float32
 accumulation), and BatchNorm keeps float32 parameters and statistics,
 normalizing in float32 and returning the activation type.
 
-Dropout takes its keep masks from a mask source bound for the forward
-(`bind_dropout`), not from a global generator: the train step binds one
-drawn from its per-step generator, and tests bind given masks.
+LayerNorm and GroupNorm compute Flax's formula (`use_fast_variance`):
+float32 statistics E[x] and E[x^2] - E[x]^2 clipped at 0, as BatchNorm's
+training statistics.
+
+Dropout, and MixTransformer's drop path, take their keep masks from a mask
+source bound for the forward (`bind_dropout`), not from a global
+generator: the train step binds one drawn from its per-step generator, and
+tests bind given masks.
 """
 
 from __future__ import annotations
@@ -99,6 +104,80 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     parameters gives a float32 output."""
     t = torch.promote_types(x.dtype, layer.weight.dtype)
     return F.linear(x.to(t), layer.weight.to(t), layer.bias.to(t))
+
+
+def dense_as_input(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer` applied as Flax's Dense with `dtype=x.dtype`: the float32
+    parameters cast to the input's type, so a bf16 input gives a bf16
+    output (MixTransformer's projections)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+# ---------------------------------------------------- LayerNorm and GroupNorm
+
+def _fast_stats(xf: torch.Tensor, dims):
+    """Flax's fast-variance statistics over `dims` of a float32 (or
+    float64) tensor: E[x] and E[x^2] - E[x]^2 clipped at 0."""
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dims, keepdim=True) - mean * mean,
+                          0.0)
+    return mean, var
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Flax's nn.LayerNorm over the last axis of `x`: float32 statistics
+    (`_fast_stats`), (x - mean) * (rsqrt(var + eps) * scale) + bias in
+    float32, returned in the input's type."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean, var = _fast_stats(xf, (-1,))
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
+    return y.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
+               bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """Flax's nn.GroupNorm over NCHW `x`, computed on its NHWC view as
+    Flax computes it: statistics of each sample and group of channels
+    (`_fast_stats`), normalized in float32, returned in the input's type.
+    A channels_last input gives a channels_last output."""
+    xh = x.permute(0, 2, 3, 1)
+    n, h, w, c = xh.shape
+    xf = xh.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+        n, h, w, groups, c // groups)
+    mean, var = _fast_stats(xf, (1, 2, 4))
+    g = (groups, c // groups)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight.reshape(g)) \
+        + bias.reshape(g)
+    return y.reshape(n, h, w, c).to(x.dtype).permute(0, 3, 1, 2)
+
+
+class LayerNorm(nn.Module):
+    """MixTransformer's LayerNorm (rtseg_tpu/models/mit.py LayerNorm): eps
+    1e-6, float32 parameters in `ln` (the Flax scope), over the last
+    axis."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.ln = nn.LayerNorm(channels, eps=eps, device=device)
+
+    def forward(self, x):
+        ln = self.ln
+        return layer_norm(x, ln.weight, ln.bias, ln.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NCHW, eps 1e-5, float32 parameters, computed as
+    Flax's nn.GroupNorm (`group_norm`) rather than F.group_norm, whose
+    variance is computed otherwise."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
+                 device=None):
+        super().__init__(num_groups, channels, eps=eps, device=device)
+
+    def forward(self, x):
+        return group_norm(x, self.num_groups, self.weight, self.bias,
+                          self.eps)
 
 
 # ------------------------------------------------------------------------- BN
@@ -313,6 +392,11 @@ class Dropout(nn.Module):
     # Dropout2d: one draw a sample and channel
     channel_wise = False
 
+    def mask_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The keep mask's shape for an NCHW input of `shape`."""
+        n, c, h, w = shape
+        return (n, c, 1, 1) if self.channel_wise else (n, c, h, w)
+
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = float(rate)
@@ -329,8 +413,7 @@ class Dropout(nn.Module):
                 f'{type(self).__name__} {self.path!r} in training needs '
                 f'keep masks: bind a mask source with bind_dropout (the '
                 f'train step binds its per-step generator)')
-        n, c, h, w = x.shape
-        shape = (n, c, 1, 1) if self.channel_wise else (n, c, h, w)
+        shape = self.mask_shape(tuple(x.shape))
         keep = self.masks(self.path, shape, 1.0 - self.rate)
         if tuple(keep.shape) != shape or keep.dtype != torch.bool:
             raise ValueError(f'{self.path}: a keep mask must be bool of '
@@ -350,8 +433,19 @@ class Dropout2d(Dropout):
         super().__init__(rate)
 
 
+class DropPath(Dropout):
+    """Stochastic depth (rtseg_tpu/models/mit.py Block): one keep draw a
+    sample, the mask (N, 1, 1, 1) over a 4-D input of any layout, and
+    Dropout's formula `where(keep, x / keep_prob, 0)`. At rate 0 (the first
+    block of the schedule) it is the identity and draws nothing."""
+
+    def mask_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return (shape[0],) + (1,) * (len(shape) - 1)
+
+
 def dropout_modules(model: nn.Module):
-    """[(path, module)] of the Dropout and Dropout2d modules of `model`."""
+    """[(path, module)] of the Dropout, Dropout2d and DropPath modules of
+    `model`."""
     return [(name, m) for name, m in model.named_modules()
             if isinstance(m, Dropout)]
 

@@ -122,6 +122,12 @@ def resize_nearest(x: torch.Tensor, size: Size2) -> torch.Tensor:
         2, idx_w.clamp_(0, w - 1))
 
 
+def resize_nearest_nchw(x: torch.Tensor, size: Size2) -> torch.Tensor:
+    """resize_nearest on the NHWC view of NCHW `x`: a channels_last input
+    gives a channels_last output."""
+    return resize_nearest(x.permute(0, 2, 3, 1), size).permute(0, 3, 1, 2)
+
+
 def pixel_shuffle_nchw(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:
     """Sub-pixel upsample of NCHW `x` (torch nn.PixelShuffle's order):
     input channel c*r^2 + r1*r + r2 goes to output channel c at spatial

@@ -51,7 +51,8 @@ def _read(path: str) -> dict:
         raise FileNotFoundError(
             f'{path} has a {_META} but no {_STATE}: it is not a checkpoint '
             f'of the PyTorch port (reading the JAX package\'s orbax '
-            f'checkpoints is queued, ROADMAP.md Queue 1 item 5)')
+            f'checkpoints is queued, ROADMAP.md Queue 1, "Trainer, checkpoint '
+            f'and data")')
     return torch.load(file, map_location='cpu', weights_only=True)
 
 

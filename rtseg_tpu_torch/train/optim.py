@@ -106,7 +106,7 @@ def get_optimizer(config, params) -> torch.optim.Optimizer:
     if config.optimizer_type in ('adam', 'adamw'):
         raise NotImplementedError(
             f'optimizer {config.optimizer_type!r} is not ported to PyTorch '
-            f'yet (ported: sgd); see ROADMAP.md Queue 1 item 3')
+            f'yet (ported: sgd); see ROADMAP.md Queue 1, "Optimizer tail"')
     if config.optimizer_type != 'sgd':
         raise NotImplementedError(
             f'Unsupported optimizer type: {config.optimizer_type}')

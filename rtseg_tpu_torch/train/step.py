@@ -5,6 +5,9 @@ build_predict_step).
 The train step casts the images to config.compute_dtype, runs the model in
 training mode (plain; with the aux heads, whose losses take the labels
 nearest-resized to each head's resolution; or with STDC's detail head),
+adds the KD term under kd_training (the frozen teacher, in eval mode and
+without autograd, on the same compute-dtype images; its logits against
+the student's main logits, weighted by config.kd_loss_coefficient),
 backpropagates the loss into float32 gradients, writes the step's LR and
 momentum into the SGD param group, updates, and moves the EMA model. One
 card: no gradient all-reduce.
@@ -45,7 +48,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..losses import get_detail_loss_fn, get_loss_fn, laplacian_pyramid
+from ..losses import (get_detail_loss_fn, get_kd_loss_fn, get_loss_fn,
+                      laplacian_pyramid)
 from ..nn.modules import DropoutMasks, bind_dropout, dropout_modules
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
@@ -71,21 +75,25 @@ def compute_dtype(config) -> torch.dtype:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f'{what} is not ported to PyTorch yet; see '
-                              f'ROADMAP.md Queue 1 {item}')
+                              f'ROADMAP.md Queue 1, "{item}"')
 
 
-def _make_forward_loss(config) -> Callable:
+def _make_forward_loss(config, teacher=None) -> Callable:
     """forward_loss(model, images, masks) -> (float32 loss, metrics): cast
     to the compute dtype, training forward, the loss and the aux or detail
-    losses; metrics holds `loss_detail` with the detail head."""
-    if config.kd_training:
-        _refuse('kd_training (the KD loss and teacher)', 'item 4')
+    losses, and under kd_training the KD term of `teacher` (a frozen model
+    in eval mode); metrics holds `loss_detail` with the detail head and
+    `loss_kd` with KD."""
+    if config.kd_training and teacher is None:
+        raise ValueError('kd_training needs the teacher model')
+    kd_fn = get_kd_loss_fn(config) if config.kd_training else None
     loss_fn = get_loss_fn(config)
     detail_loss_fn = get_detail_loss_fn(config)
     dtype = compute_dtype(config)
 
     def forward_loss(model, images, masks):
-        out = model(images.to(dtype))
+        x = images.to(dtype)
+        out = model(x)
         metrics = {}
         if config.use_aux:
             preds, preds_aux = out
@@ -112,7 +120,14 @@ def _make_forward_loss(config) -> Callable:
             metrics['loss_detail'] = loss_detail.detach()
             loss = loss + config.detail_loss_coef * loss_detail
         else:
-            loss = loss_fn(out, masks)
+            preds = out
+            loss = loss_fn(preds, masks)
+        if kd_fn is not None:
+            with torch.no_grad():
+                t_out = teacher(x)
+            loss_kd = kd_fn(preds, t_out)
+            metrics['loss_kd'] = loss_kd.detach()
+            loss = loss + config.kd_loss_coefficient * loss_kd
         return loss, metrics
 
     return forward_loss
@@ -125,10 +140,13 @@ def dropout_seed(random_seed: int, step: int) -> int:
 
 
 def build_train_step(config, norm_coeffs=None,
-                     dropout_masks: Optional[Callable] = None) -> Callable:
+                     dropout_masks: Optional[Callable] = None,
+                     teacher: Optional[torch.nn.Module] = None) -> Callable:
     """train_step(state, images [B,H,W,3], masks [B,H,W]) -> (state,
-    {'loss': 0-dim float32 tensor on the device, and 'loss_detail' with the
-    detail head}); updates `state` in place. Nothing is read back.
+    {'loss': 0-dim float32 tensor on the device, 'loss_detail' with the
+    detail head, 'loss_kd' with KD}); updates `state` in place. Nothing is
+    read back. `teacher` is the frozen KD teacher under kd_training (the
+    trainer's, in eval mode).
 
     `dropout_masks(step)`, where given, returns the mask source
     (nn/modules.py `MaskSource`) of that step in place of the masks drawn
@@ -136,8 +154,9 @@ def build_train_step(config, norm_coeffs=None,
     the masks they hand the JAX package, and the card-against-CPU check
     the same masks on both devices."""
     if norm_coeffs is not None:
-        _refuse('the uint8 flip+normalize tail (norm_coeffs)', 'item 3')
-    forward_loss = _make_forward_loss(config)
+        _refuse('the uint8 flip+normalize tail (norm_coeffs)',
+                'Optimizer tail')
+    forward_loss = _make_forward_loss(config, teacher)
     lr_fn = get_lr_schedule(config)
     mom = get_momentum(config)
     total_itrs = np.float32(max(int(config.total_itrs), 1))

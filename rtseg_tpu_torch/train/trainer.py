@@ -16,9 +16,14 @@ caller, or drawn from config.random_seed with the initializers of Flax's
 torchvision state_dict then replaces the backbone scope's weights
 (utils/torch_import.py), before the EMA copy is made and before a
 checkpoint is resumed. They seed the model and the EMA.
-The dropout models (ENet, MiniNet) draw their masks from the train step's
+The dropout models (ENet, MiniNet, the smp decoders with dropout) and
+MixTransformer's drop path draw their masks from the train step's
 generator, seeded from config.random_seed + 1 and the step
 (train/step.py), so a resumed run draws the masks of an uninterrupted one.
+Under kd_training the teacher (models/registry.py get_teacher_model) is
+built on the trainer's device, loaded from config.teacher_ckpt (a
+checkpoint of the port, train/checkpoint.py) and frozen: eval mode, no
+gradients, outside the optimizer, the EMA and the checkpoints.
 Prediction to files, TensorBoard, segscope telemetry, profiling and the
 compile cache are later slices (ROADMAP.md).
 """
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from ..data import get_loader
-from ..models.registry import get_model
+from ..models.registry import get_model, get_teacher_model
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
 from ..utils.torch_import import import_backbone
@@ -47,13 +52,12 @@ from .step import build_eval_step, build_train_step
 _INT32_MAX = np.iinfo(np.int32).max
 
 # config switches of the JAX trainer that the port does not implement yet,
-# with the ROADMAP.md item that brings each
-_NOT_PORTED = (('use_tb', 'TensorBoard logging', 'Queue 1 item 12 (obs/)'),
-               ('use_obs', 'segscope telemetry', 'Queue 1 item 12 (obs/)'),
-               ('profile_dir', 'the profiler trace', 'Queue 1 item 12 (obs/)'),
-               ('compile_cache', 'the compile cache',
-                'Queue 1 item 12 (warm/)'),
-               ('remat', 'rematerialization', 'Queue 1 item 8'))
+# with the title of the ROADMAP.md Queue 1 item that brings each
+_NOT_PORTED = (('use_tb', 'TensorBoard logging', 'The planes'),
+               ('use_obs', 'segscope telemetry', 'The planes'),
+               ('profile_dir', 'the profiler trace', 'The planes'),
+               ('compile_cache', 'the compile cache', 'The planes'),
+               ('remat', 'rematerialization', 'Optimizer tail'))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,12 +112,14 @@ class SegTrainer:
                                 optimizer=get_optimizer(config,
                                                         model.parameters()),
                                 ema_model=make_ema_model(model))
-        self.train_step = build_train_step(config)
+        self.teacher = self._load_teacher() if config.kd_training else None
+        self.train_step = build_train_step(config, teacher=self.teacher)
         self.eval_step = build_eval_step(config, self.state.ema_model,
                                          self.device)
         self.cur_epoch = 0
         self.best_score = 0.0
         self.epoch_losses = []             # mean loss per trained epoch
+        self.epoch_kd_losses = []          # mean KD term per epoch (KD)
         self.last_cm: Optional[np.ndarray] = None
         self.load_ckpt()
 
@@ -124,6 +130,21 @@ class SegTrainer:
     @property
     def ema_model(self) -> torch.nn.Module:
         return self.state.ema_model
+
+    def _load_teacher(self) -> torch.nn.Module:
+        """The KD teacher on the trainer's device with config.teacher_ckpt's
+        weights, frozen."""
+        cfg = self.config
+        if not cfg.teacher_ckpt or load_meta(cfg.teacher_ckpt) is None:
+            raise ValueError(f'kd_training needs config.teacher_ckpt to name '
+                             f'a checkpoint of the port, got '
+                             f'{cfg.teacher_ckpt!r}')
+        teacher = get_teacher_model(cfg, device=self.device)
+        restore_weights(cfg.teacher_ckpt, teacher)
+        teacher.requires_grad_(False)
+        self.logger.info(f'Loaded the KD teacher {cfg.teacher_encoder}/'
+                         f'{cfg.teacher_decoder} from {cfg.teacher_ckpt}')
+        return teacher.eval()
 
     # ------------------------------------------------------------------ ckpt
     def load_ckpt(self) -> None:
@@ -159,7 +180,7 @@ class SegTrainer:
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f'{flag}: {what} is not ported to PyTorch yet; set it '
-                    f'off (see ROADMAP.md {item})')
+                    f'off (see ROADMAP.md Queue 1, "{item}")')
         start = time.perf_counter()
         for epoch in range(self.cur_epoch, cfg.total_epoch):
             self.cur_epoch = epoch
@@ -184,7 +205,7 @@ class SegTrainer:
         cfg = self.config
         self.train_loader.set_epoch(self.cur_epoch)
         nb = len(self.train_loader)
-        loss_sum, n_steps, lag = None, 0, None
+        loss_sum, kd_sum, n_steps, lag = None, None, 0, None
         t_log = time.perf_counter()
         try:
             for i, (imgs, msks) in enumerate(self.train_loader):
@@ -193,6 +214,9 @@ class SegTrainer:
                 self.state, metrics = self.train_step(self.state, imgs, msks)
                 loss = metrics['loss']
                 loss_sum = loss if loss_sum is None else loss_sum + loss
+                if 'loss_kd' in metrics:
+                    kd = metrics['loss_kd']
+                    kd_sum = kd if kd_sum is None else kd_sum + kd
                 n_steps += 1
                 if cfg.log_interval > 0 and (i + 1) % cfg.log_interval == 0:
                     li, ll = lag if lag is not None else (i, _HostScalar(loss))
@@ -211,8 +235,12 @@ class SegTrainer:
                 'Training loader yielded no batches; the dataset is smaller '
                 'than the batch size.')
         self.epoch_losses.append(float(loss_sum) / n_steps)
+        kd_text = ''
+        if kd_sum is not None:
+            self.epoch_kd_losses.append(float(kd_sum) / n_steps)
+            kd_text = f' | KD loss:{self.epoch_kd_losses[-1]:.4g}'
         self.logger.info(f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
-                         f'Loss:{self.epoch_losses[-1]:.4g}')
+                         f'Loss:{self.epoch_losses[-1]:.4g}{kd_text}')
 
     def validate(self, val_best: bool = False) -> float:
         """mIoU of the EMA weights over the val split. The confusion matrix

@@ -15,6 +15,8 @@ and the rule that maps the leaf is keyed on that module's type alone:
                       batch_stats/mean, batch_stats/var
                           -> running_mean, running_var
   PReLU (nn/modules)  params/alpha -> weight
+  nn.LayerNorm, GroupNorm (nn/modules)
+                      params/scale, params/bias -> weight, bias
 
 Variables are nested dicts of numpy arrays ({'params': ..., 'batch_stats':
 ...}), so no JAX is needed on either side. The functions that map a tree
@@ -39,6 +41,8 @@ _CONV = {('params', 'kernel'): ('weight', (3, 2, 0, 1)),
          ('params', 'bias'): ('bias', None)}
 _LINEAR = {('params', 'kernel'): ('weight', (1, 0)),
            ('params', 'bias'): ('bias', None)}
+_NORM = {('params', 'scale'): ('weight', None),
+         ('params', 'bias'): ('bias', None)}
 _BN = {('params', 'scale'): ('weight', None),
        ('params', 'bias'): ('bias', None),
        ('batch_stats', 'mean'): ('running_mean', None),
@@ -52,10 +56,10 @@ def _rules() -> Dict[type, dict]:
     order maps back)}. A conv's HWIO and a transposed conv's
     (kh, kw, out, in) both take (3, 2, 0, 1). Built at first use: the
     port's modules import the package that holds this converter."""
-    from ..nn.modules import PReLU
+    from ..nn.modules import GroupNorm, PReLU
     return {nn.Conv2d: _CONV, nn.ConvTranspose2d: _CONV, nn.Linear: _LINEAR,
-            nn.BatchNorm2d: _BN, PReLU: {('params', 'alpha'): ('weight',
-                                                               None)}}
+            nn.BatchNorm2d: _BN, nn.LayerNorm: _NORM, GroupNorm: _NORM,
+            PReLU: {('params', 'alpha'): ('weight', None)}}
 
 
 @lru_cache(maxsize=None)

@@ -365,9 +365,10 @@ def _strict_cases():
         ({'params': {'Dense_0': {'kernel': k2}}}, KeyError,
          "no module named 'Dense_0'"),
         ({'params': {'kernel': k2}}, KeyError, 'unmapped Flax leaf'),
-        # a module of a type without a rule
+        # a module of a type without a rule (torch's own GroupNorm: the
+        # rule is the port's GroupNorm's, keyed on the exact type)
         ({'params': {'ln': {'scale': np.ones(4)}}}, KeyError,
-         'unknown module type LayerNorm'),
+         'unknown module type GroupNorm'),
     ], names
 
 
@@ -379,14 +380,14 @@ def test_converter_stays_strict_on_kernel_ranks_and_names(case):
     raise; loading leaves no module tensor unfilled."""
     cases, names = _strict_cases()
     module = _Named(names)
-    module.ln = torch.nn.LayerNorm(4)
+    module.ln = torch.nn.GroupNorm(2, 4)
     variables, error, match = cases[case]
     with pytest.raises(error, match=match):
         from_jax_variables(variables, module)
     # the other direction
     with pytest.raises(KeyError, match='no Flax leaf'):
         state_dict_to_flax({'fc.weight_v': torch.zeros(2, 2)}, module)
-    with pytest.raises(KeyError, match='unknown module type LayerNorm'):
+    with pytest.raises(KeyError, match='unknown module type GroupNorm'):
         state_dict_to_flax({'ln.weight': torch.zeros(4)}, module)
     with pytest.raises(KeyError, match="no module named 'nowhere'"):
         state_dict_to_flax({'nowhere.weight': torch.zeros(2, 2)}, module)

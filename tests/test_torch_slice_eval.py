@@ -158,8 +158,10 @@ def test_port_refuses_what_it_does_not_implement():
         with pytest.raises(NotImplementedError, match=lever):
             get_model(_config(**{lever: True}))
     # every model of the JAX registry is ported (tests/test_torch_zoo_*.py,
-    # tests/test_torch_*_models.py); the smp encoder-decoder hub is not
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # tests/test_torch_*_models.py), and so is the smp encoder-decoder hub
+    # (tests/test_torch_smp_models.py), which without a decoder raises the
+    # JAX package's ValueError
+    with pytest.raises(ValueError, match='Unsupported decoder type'):
         get_model(_config(model='smp', use_aux=False))
     # training is ported: with the aux heads the training forward returns
     # the logits and the four aux logits

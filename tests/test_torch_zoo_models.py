@@ -157,8 +157,8 @@ def test_training_forward_and_batch_stats_match_flax(variables, variant):
 
 def test_registry_dispatch_and_refusals():
     """Beside the cases of tests/test_torch_train_step.py: the detail head
-    on the aux models, the TPU remat lever, the smp hub (every other name
-    of the JAX registry is ported)."""
+    on the aux models, the TPU remat lever, the smp hub without a
+    decoder."""
     for name, kw in (('ddrnet', dict(use_detail_head=True)),
                      ('bisenetv2', dict(use_detail_head=True))):
         with pytest.raises(ValueError, match='support'):
@@ -168,9 +168,10 @@ def test_registry_dispatch_and_refusals():
         with pytest.raises(NotImplementedError, match='hires_remat'):
             get_model(SegConfig(model=name, num_class=NC, use_aux=False,
                                 hires_remat=True))
-    for name in ('smp',):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            get_model(SegConfig(model=name, num_class=NC, use_aux=False))
+    # the smp hub is ported (tests/test_torch_smp_models.py): without a
+    # decoder it raises the JAX package's ValueError
+    with pytest.raises(ValueError, match='Unsupported decoder type'):
+        get_model(SegConfig(model='smp', num_class=NC, use_aux=False))
 
 
 def test_detail_targets_match_flax(variables):
