@@ -81,6 +81,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      loss and loss_kd within 1e-5, weights within 1e-3); the student's
      step with and without KD, the teacher's forward alone, the student's
      eval step at 1024x2048
+  6c. the optimizer tail (phase_optim): (a) smp FPN on MiT-b2 under AdamW:
+     run() for 1 epoch of 3 steps at 512x1024 bs16 bf16 with its
+     validation and val_best through K1 and K2 (launches counted), a
+     fresh trainer resumes last.ckpt (weights, AdamW moments and counts,
+     step, EMA) bit for bit and one more step from each is bit-equal
+     (deterministic cuDNN), the step's time, split and peak; (b)
+     BiSeNetv2 with its aux heads under Adam with remat: run() (launches
+     counted); BiSeNetv2, ENet, MiT-b2 FPN and SegNet one step with and
+     without remat from the same Flax init, bit-equal, the same number of
+     masks drawn, both steps' times and peaks; (c) the uint8 tail:
+     device_flip_norm at [16,512,1024,3] with random flags on the card
+     bit-equal to the CPU and the host path, BiSeNetv2's train step with
+     norm_coeffs on a uint8 batch bit-equal to the float step on the
+     host-normalized batch, the eval step with norm_coeffs at 1024x2048
+     (launches counted) giving the float step's confusion matrix; (d) 3
+     float32 steps card against CPU under Adam (BiSeNetv2) and AdamW
+     (MiT-b2 FPN) at OPTIM_SMALL's schedule, within the zoo's limits
   7. import: a random torchvision-named ResNet-18 and MobileNetV2
      state_dict, written to a temp dir, imported through
      config.backbone_ckpt by SegTrainer on the card into SwiftNet and
@@ -92,11 +109,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 [16,512,1024,19] -> 1024x2048; K1 at several class
      counts (each checked); the slice's imgs/s; K1's row loop at the
      issue rate, from its SASS (phase 1)
-  9. the {"train": ...}, {"zoo": ...}, {"kd": ...} and {"import": ...}
-     lines, and the {"kernels": [...]} line, whose launch counts are those
-     of the eval slice (phase 4), the train run (phase 5), the zoo's runs
-     (phase 6) and the KD runs (phase 6b) together, checked exactly
-     against the counts `ZOO` and the KD pair give: K1 68, K2 100;
+  9. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...} and
+     {"import": ...} lines, and the {"kernels": [...]} line, whose launch
+     counts are those of the eval slice (phase 4), the train run (phase
+     5), the zoo's runs (phase 6), the KD runs (phase 6b) and the
+     optimizer tail's runs and eval step (phase 6c) together, checked
+     exactly against the counts they give: K1 73, K2 105;
   10. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -1145,7 +1163,11 @@ def _zoo_card_vs_cpu(name, variables, kw, samples, build=None):
     Lite-HRNet's BatchNorms over its pooled weights see a value a sample
     and channel: at full depth one step of 4 parts its stem kernel by
     1.0e-2-7.6e-2, of 16 by 2.6e-4-5.7e-4. It runs one step of 16 with one
-    CCW block a branch (`repeat=1`, ZOO_SMALL_RUN): 1.6e-5-2.5e-5."""
+    CCW block a branch (`repeat=1`, ZOO_SMALL_RUN): 1.6e-5-2.5e-5.
+
+    Phase 6c's Adam and AdamW runs (OPTIM_CHECKS) take it at the start of
+    a long warmup (OPTIM_SMALL), where Adam's sign-normalized updates
+    part two runs least."""
     runs = _card_vs_cpu_runs(variables, ('cuda', 'cpu'), build,
                              **zoo_small_config(kw, samples))
     card, cpu = runs['cuda'], runs['cpu']
@@ -1586,6 +1608,360 @@ def phase_kd(dev, card, eval_imgs, eval_msks):
         'card_vs_cpu_weights': cpu_abs}
 
 
+# ----------------------------------------------------------------- phase 6c
+# the optimizer tail: AdamW on the smp FPN over MiT-b2 (the encoder family
+# trained with AdamW), Adam with remat on the flagship BiSeNetv2
+OPTIM_MIT = dict(_smp('mit_b2', 'fpn'), optimizer_type='adamw')
+OPTIM_FLAGSHIP = dict(model='bisenetv2', use_aux=True,
+                      optimizer_type='adam')
+# the models whose step runs with and without remat: the flagship, ENet
+# (Dropout2d), MiT-b2 FPN (drop path, LayerNorm) and SegNet (the largest
+# peak of the zoo)
+REMAT_MODELS = (('BiSeNetv2', dict(model='bisenetv2', use_aux=True)),
+                ('ENet', dict(model='enet', use_aux=False)),
+                ('smp FPN MiT-b2', _smp('mit_b2', 'fpn')),
+                ('SegNet', dict(model='segnet', use_aux=False)))
+# the card-against-CPU runs under Adam and AdamW: (name, config switches,
+# samples a step), 3 float32 steps at 64x128 at the start of a long
+# warmup (OPTIM_SMALL), the LR near its floor of 1e-3 / 25. Adam moves an
+# element by about the LR whichever sign the rounding gives its gradient,
+# so where an element's gradient is rounding noise two runs part by up to
+# twice the LRs summed: at the zoo's schedule (4e-5, 5.2e-4, 1e-3) 3.1e-3,
+# beyond the 1e-3 limit; at OPTIM_SMALL 2.4e-4. There two CPU runs from
+# weights 1e-7 apart part by 1.5e-4-1.7e-4 in BiSeNetv2's weights and by
+# 1.9e-5-2.2e-5 in MiT-b2 FPN's (zoo_check_spread.py adam-bisenetv2:4
+# adamw-smp-mit_b2-fpn:4)
+OPTIM_SMALL = dict(total_epoch=100, warmup_epochs=50)
+OPTIM_CHECKS = (('BiSeNetv2 Adam', dict(OPTIM_FLAGSHIP, **OPTIM_SMALL), 4),
+                ('smp FPN MiT-b2 AdamW', dict(OPTIM_MIT, **OPTIM_SMALL), 4))
+# ImageNet's normalize of the data pipeline (scale, bias): the host path's
+# coefficients for the uint8 tail, 1 / (255 std) and -mean / std
+_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+_STD = np.array([0.229, 0.224, 0.225], np.float32)
+NORM_COEFFS = (np.float32(1.0) / (255.0 * _STD), (-_MEAN / _STD).astype(
+    np.float32))
+
+
+def host_flip_norm(images: np.ndarray, masks: np.ndarray,
+                   flags: np.ndarray):
+    """The host path of the uint8 tail, sample by sample: flip, then
+    f32(f32(v) * scale) + bias."""
+    scale, bias = NORM_COEFFS
+    out = np.empty(images.shape, np.float32)
+    flipped = np.empty_like(masks)
+    for i, (h_flip, v_flip) in enumerate(flags):
+        x, m = images[i], masks[i]
+        if h_flip:
+            x, m = x[:, ::-1], m[:, ::-1]
+        if v_flip:
+            x, m = x[::-1], m[::-1]
+        out[i] = x.astype(np.float32)
+        out[i] *= scale
+        out[i] += bias
+        flipped[i] = m
+    return out, flipped
+
+
+def _adam_state(trainer):
+    """{parameter name: {'step', 'exp_avg', 'exp_avg_sq'}} of a trainer."""
+    names = {p: n for n, p in trainer.model.named_parameters()}
+    return {names[p]: s for p, s in trainer.state.optimizer.state.items()}
+
+
+def _same_adam_state(a, b, what):
+    sa, sb = _adam_state(a), _adam_state(b)
+    check(sa.keys() == sb.keys() == dict(a.model.named_parameters()).keys(),
+          f'{what}: Adam state of other parameters')
+    for n, s in sa.items():
+        check(s.keys() == sb[n].keys() == {'step', 'exp_avg', 'exp_avg_sq'}
+              and all(torch.equal(s[k], sb[n][k]) for k in s),
+              f'{what}: Adam state of {n} differs')
+
+
+def _counted(fn):
+    """(result of fn(), {kernel: launches in it})."""
+    from rtseg_tpu_torch.ops.fused_head import resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
+    resize_argmax.launches = 0
+    confusion_matrix_pallas.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {'resize_argmax': resize_argmax.launches,
+                 'confusion_matrix': confusion_matrix_pallas.launches}
+
+
+def _deterministic(flag: bool) -> bool:
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = flag
+    return old
+
+
+def _remat_pair(name, kw, dev):
+    """One bf16 step of `kw` at 512x1024 bs16 on a resident batch from the
+    same Flax init, without and with remat, deterministic cuDNN: loss,
+    weights, BatchNorm statistics, EMA and Adam's state equal bit for bit,
+    the recompute asking the step's generator for no mask; then both
+    steps' times and peaks."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.nn import DropoutMasks
+    from rtseg_tpu_torch.train import SegTrainer, build_train_step
+    from rtseg_tpu_torch.train.step import dropout_seed
+    from rtseg_tpu_torch.utils.convert import (flax_init_variables,
+                                               to_jax_variables)
+    cfg_kw = dict(synthetic_len=B, total_epoch=1, optimizer_type='adam',
+                  save_ckpt=False, load_ckpt=False, **kw)
+    variables = flax_init_variables(get_model(_train_config(
+        'unused', **cfg_kw), device=dev), seed=1)
+    pair, draws, out = [], [], {}
+    for remat in (False, True):
+        t = SegTrainer(_train_config('unused', remat=remat, **cfg_kw),
+                       variables=variables)
+        count = [0]
+        gen = torch.Generator(device=dev)
+
+        def source(k, count=count, gen=gen, seed=t.config.random_seed):
+            gen.manual_seed(dropout_seed(seed, k))
+            masks = DropoutMasks(gen)
+
+            def counted(*args):
+                count[0] += 1
+                return masks(*args)
+            return counted
+        t.train_step = build_train_step(t.config, dropout_masks=source)
+        pair.append(t)
+        draws.append(count)
+    pair[0].train_loader.set_epoch(0)
+    imgs, msks = next(iter(pair[0].train_loader))
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    old = _deterministic(True)
+    try:
+        losses = [t.train_step(t.state, imgs, msks)[1]['loss'] for t in pair]
+    finally:
+        _deterministic(old)
+    a, b = pair
+    check(torch.equal(losses[0], losses[1]),
+          f'{name} remat loss {float(losses[1])} != {float(losses[0])}')
+    worst = max(_same_weights(to_jax_variables(b.model),
+                              to_jax_variables(a.model), math.inf),
+                _same_weights(to_jax_variables(b.ema_model),
+                              to_jax_variables(a.ema_model), math.inf))
+    check(worst[0] == 0.0, f'{name} remat weights differ by {worst}')
+    _same_adam_state(a, b, f'{name} remat')
+    check(draws[0][0] == draws[1][0],
+          f'{name}: {draws[1][0]} masks drawn with remat, {draws[0][0]} '
+          f'without')
+    out['masks_drawn'] = draws[0][0]
+    for label, t in (('plain', a), ('remat', b)):
+        ms = time_ms(lambda: t.train_step(t.state, imgs, msks), iters=3,
+                     warmup=1)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t.train_step(t.state, imgs, msks)
+        torch.cuda.synchronize()
+        out[label] = {'step_ms': ms,
+                      'peak_bytes': torch.cuda.max_memory_allocated(),
+                      'before_bytes': before}
+    for t in pair:
+        t.model.eval()
+    say(f'optim remat {name}: one Adam step of {B}x{TRAIN_H}x{TRAIN_W} bf16 '
+        f'with and without remat, deterministic cuDNN: loss {float(losses[0])}'
+        f' both, weights, BN statistics, EMA and Adam state bit-equal, '
+        f'{out["masks_drawn"]} masks drawn in each; step '
+        f'{out["plain"]["step_ms"]:.3f}'
+        f' ms without, {out["remat"]["step_ms"]:.3f} ms with; peak '
+        f'{out["plain"]["peak_bytes"] / 2**30:.3f} GiB without, '
+        f'{out["remat"]["peak_bytes"] / 2**30:.3f} GiB with '
+        f'({out["remat"]["before_bytes"] / 2**30:.3f} GiB allocated before '
+        f'the step)')
+    return out
+
+
+def phase_optim(dev, card, eval_imgs, eval_msks):
+    """The optimizer tail on the card at full width (bs16, 512x1024 train
+    crop, 1024x2048 eval, bf16, 19 classes, Flax init, OHEM, OneCycle,
+    EMA): (a) AdamW on smp FPN over MiT-b2: run() for 1 epoch of 3 steps
+    through K1 and K2, a fresh trainer resumes last.ckpt bit for bit and
+    one more step from each is bit-equal, the step's times; (b) Adam with
+    remat on BiSeNetv2 with its aux heads: run(), and the step with and
+    without remat on four models; (c) the uint8 tail: device_flip_norm on
+    the card against the CPU, the train step with norm_coeffs against the
+    float step on the host-normalized batch, the eval step with
+    norm_coeffs against the float one (counted); (d) 3 float32 steps card
+    against CPU under Adam and AdamW."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.ops.augment import device_flip_norm
+    from rtseg_tpu_torch.train import (SegTrainer, build_eval_step,
+                                       build_train_step)
+    from rtseg_tpu_torch.utils.convert import to_jax_variables
+
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    out = {}
+
+    def counted_run(what, trainer):
+        wall_start = time.perf_counter()
+        miou, got = _counted(trainer.run)
+        wall = time.perf_counter() - wall_start
+        n_val = len(trainer.val_loader)
+        want = {'resize_argmax': 2 * n_val, 'confusion_matrix': 2 * n_val}
+        check(got == want, f'{what} launch counts {got} != {want}')
+        check(trainer.state.step == 3 and len(trainer.epoch_losses) == 1
+              and math.isfinite(trainer.epoch_losses[0])
+              and math.isfinite(miou),
+              f'{what} run: step {trainer.state.step}, losses '
+              f'{trainer.epoch_losses}, mIoU {miou}')
+        for k, v in got.items():
+            launches[k] += v
+        say(f'optim {what}: run() {wall:.3f} s (cold), 3 steps of {B}x'
+            f'{TRAIN_H}x{TRAIN_W} bf16, epoch loss {trainer.epoch_losses}, '
+            f'val_best mIoU {miou:.6f}, launches {got}')
+        return wall, miou
+
+    # (a) AdamW on MiT-b2 FPN: run, resume, one more step, times
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_optim_')
+    try:
+        cfg = _train_config(tmp, synthetic_len=3 * B, total_epoch=1,
+                            **OPTIM_MIT)
+        mit = SegTrainer(cfg)
+        wall, miou = counted_run('MiT-b2 FPN AdamW', mit)
+        resumed = SegTrainer(_train_config(tmp, synthetic_len=3 * B,
+                                           total_epoch=1, **OPTIM_MIT))
+        check(resumed.state.step == mit.state.step == 3
+              and resumed.cur_epoch == 1, f'resumed at step '
+              f'{resumed.state.step}, epoch {resumed.cur_epoch}')
+        last = torch.load(Path(tmp) / 'last.ckpt' / 'state.pt',
+                          weights_only=True)
+        _same_weights(to_jax_variables(resumed.model),
+                      to_jax_variables(mit.model))
+        _same_weights(to_jax_variables(resumed.ema_model),
+                      last['ema_variables'])
+        _same_weights(to_jax_variables(mit.ema_model),
+                      last['ema_variables'])
+        _same_adam_state(mit, resumed, 'MiT-b2 resume')
+        mit.train_loader.set_epoch(1)
+        imgs, msks = next(iter(mit.train_loader))
+        imgs, msks = imgs.to(dev), msks.to(dev)
+        old = _deterministic(True)
+        try:
+            l1 = [t.train_step(t.state, imgs, msks)[1]['loss']
+                  for t in (mit, resumed)]
+        finally:
+            _deterministic(old)
+        check(torch.equal(l1[0], l1[1]), f'one more step: {l1}')
+        _same_weights(to_jax_variables(resumed.model),
+                      to_jax_variables(mit.model))
+        _same_weights(to_jax_variables(resumed.ema_model),
+                      to_jax_variables(mit.ema_model))
+        _same_adam_state(mit, resumed, 'MiT-b2 one more step')
+        say(f'optim resume: a fresh trainer holds last.ckpt\'s weights, '
+            f'AdamW moments and counts, step and EMA bit for bit; one more '
+            f'step from each (deterministic cuDNN): loss {float(l1[0])} '
+            f'both, weights, EMA and Adam state bit-equal')
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_ms, parts, peak, before = _step_times(mit, cfg, imgs, msks)
+    say(f'optim MiT-b2 FPN AdamW times ({card}): train step on a resident '
+        f'batch {step_ms:.3f} ms = {B / step_ms * 1e3:.2f} imgs/s; split '
+        f'forward+loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, '
+        f'optimizer+EMA {parts[2]:.3f} ms; peak memory of a step '
+        f'{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated before '
+        f'it); under SGD (PERF.md section 5): 183.838 ms, optimizer+EMA '
+        f'1.777 ms, 23.145 GiB')
+    out['mit_adamw'] = {'run_cold_s': wall, 'miou': miou, 'step_ms': step_ms,
+                        'parts_ms': parts.tolist(), 'peak_bytes': peak,
+                        'params': sum(p.numel()
+                                      for p in mit.model.parameters())}
+    del mit
+
+    # (b) Adam with remat on the flagship, and remat's equality and cost
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_remat_')
+    try:
+        flag = SegTrainer(_train_config(tmp, synthetic_len=3 * B,
+                                        total_epoch=1, remat=True,
+                                        **OPTIM_FLAGSHIP))
+        wall, miou = counted_run('BiSeNetv2 Adam remat', flag)
+        out['flagship_adam_remat'] = {'run_cold_s': wall, 'miou': miou}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out['remat'] = {name: _remat_pair(name, kw, dev)
+                    for name, kw in REMAT_MODELS}
+
+    # (c) the uint8 tail
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 256, (B, TRAIN_H, TRAIN_W, 3), dtype=np.uint8)
+    labels = rng.integers(0, C, (B, TRAIN_H, TRAIN_W), dtype=np.int32)
+    flags = rng.integers(0, 2, (B, 2), dtype=np.uint8)
+    cpu_x, cpu_m = device_flip_norm(torch.from_numpy(u8),
+                                    torch.from_numpy(labels),
+                                    torch.from_numpy(flags), *NORM_COEFFS)
+    u8_d, labels_d, flags_d = (torch.from_numpy(a).to(dev)
+                               for a in (u8, labels, flags))
+    x, m = device_flip_norm(u8_d, labels_d, flags_d, *NORM_COEFFS)
+    host_x, host_m = host_flip_norm(u8, labels, flags)
+    check(torch.equal(x.cpu(), cpu_x) and torch.equal(m.cpu(), cpu_m),
+          'device_flip_norm: the card differs from the CPU')
+    check(np.array_equal(cpu_x.numpy(), host_x)
+          and np.array_equal(cpu_m.numpy(), host_m),
+          'device_flip_norm differs from the host path')
+    flip_ms = time_ms(lambda: device_flip_norm(u8_d, labels_d, flags_d,
+                                               *NORM_COEFFS), iters=10)
+    del x, m
+    pair = [SegTrainer(_train_config('unused', synthetic_len=B,
+                                     total_epoch=1, save_ckpt=False,
+                                     load_ckpt=False, **OPTIM_FLAGSHIP))
+            for _ in range(2)]
+    raw_step = build_train_step(pair[0].config, norm_coeffs=NORM_COEFFS)
+    old = _deterministic(True)
+    try:
+        l_raw = raw_step(pair[0].state, u8_d, labels_d, flags_d)[1]['loss']
+        l_host = pair[1].train_step(
+            pair[1].state, torch.from_numpy(host_x).to(dev),
+            torch.from_numpy(host_m).to(dev))[1]['loss']
+    finally:
+        _deterministic(old)
+    check(torch.equal(l_raw, l_host), f'norm_coeffs step loss {l_raw} != '
+          f'{l_host}')
+    for x, y in ((pair[0].model, pair[1].model),
+                 (pair[0].ema_model, pair[1].ema_model)):
+        _same_weights(to_jax_variables(x), to_jax_variables(y))
+    eval_u8 = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
+    eval_x, _ = host_flip_norm(eval_u8, np.zeros((B, 1, 1), np.int32),
+                               np.zeros((B, 2), np.uint8))
+    model = pair[0].ema_model
+    raw_eval = build_eval_step(pair[0].config, model, dev, NORM_COEFFS)
+    cm_raw, got = _counted(lambda: raw_eval(torch.from_numpy(eval_u8).to(
+        dev), eval_msks))
+    check(got == {'resize_argmax': 1, 'confusion_matrix': 1},
+          f'eval step with norm_coeffs: launches {got}')
+    for k, v in got.items():
+        launches[k] += v
+    cm_host = build_eval_step(pair[0].config, model, dev)(
+        torch.from_numpy(eval_x).to(dev), eval_msks)
+    check(torch.equal(cm_raw, cm_host), 'the eval step with norm_coeffs '
+          'gives another confusion matrix than the float one')
+    say(f'optim uint8 tail: device_flip_norm at {list(u8.shape)} with '
+        f'random flags bit-equal on the card and the CPU and to the host '
+        f'path, {flip_ms:.3f} ms on the card; BiSeNetv2 Adam step with '
+        f'norm_coeffs on the uint8 batch: loss {float(l_raw)}, loss, '
+        f'weights, BN statistics and EMA bit-equal to the float step on the '
+        f'host-normalized batch (deterministic cuDNN); eval step at {H}x{W} '
+        f'with norm_coeffs: confusion matrix equal to the float one\'s '
+        f'(total {int(cm_raw.sum())}), launches {got}')
+    out['uint8_tail'] = {'flip_norm_ms': flip_ms}
+    del pair, model, raw_eval
+
+    # (d) card against CPU, from the mapping check's draw
+    out['card_vs_cpu'] = {}
+    for name, kw, samples in OPTIM_CHECKS:
+        variables = zoo_small_variables(kw, get_model(_train_config(
+            'unused', **kw)))
+        first, rel, weights = _zoo_card_vs_cpu(name, variables, kw, samples)
+        out['card_vs_cpu'][name] = {'first_loss': first, 'loss': rel,
+                                    'weights': weights}
+    return launches, out
+
+
 # ------------------------------------------------------------------ phase 7
 _MOBILENET_V2_SETTINGS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
                           (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
@@ -1935,14 +2311,18 @@ def main() -> int:
     elapsed('6 (zoo)')
     kd_launches, kd = phase_kd(dev, card, imgs, msks)
     elapsed('6b (KD)')
+    optim_launches, optim = phase_optim(dev, card, imgs, msks)
+    elapsed('6c (optimizer tail)')
     imports = phase_import(dev)
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
-                for k, v in launches.items()}
+                + optim_launches[k] for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
-    # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits)
-    want = {'resize_argmax': 10 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
-            'confusion_matrix': 10 + 2 * len(ZOO)}
+    # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits), 2 each
+    # for the MiT-b2 AdamW and the BiSeNetv2 Adam runs and 1 for the eval
+    # step with norm_coeffs
+    want = {'resize_argmax': 15 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
+            'confusion_matrix': 15 + 2 * len(ZOO)}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
@@ -1950,6 +2330,7 @@ def main() -> int:
     say(json.dumps({'train': train}))
     say(json.dumps({'zoo': zoo}))
     say(json.dumps({'kd': kd}))
+    say(json.dumps({'optim': optim}))
     say(json.dumps({'import': imports}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {

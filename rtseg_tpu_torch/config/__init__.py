@@ -1,3 +1,3 @@
-from .base import SegConfig
+from .base import SegConfig, refuse_unported
 
-__all__ = ['SegConfig']
+__all__ = ['SegConfig', 'refuse_unported']

@@ -404,3 +404,17 @@ class SegConfig:
     def from_dict(cls, d: dict) -> "SegConfig":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+def refuse_unported(config, switches) -> None:
+    """The port's rule for a switch of the JAX package that it does not
+    implement yet: it raises, never is ignored. `switches` holds (flag,
+    whether a value asks for the feature, what the feature is, the title
+    of the ROADMAP.md Queue 1 item that brings it)."""
+    for flag, asks, what, item in switches:
+        value = getattr(config, flag)
+        if asks(value):
+            raise NotImplementedError(
+                f'{flag}={value!r}: {what} is not ported to PyTorch yet; '
+                f'leave it at its default (see ROADMAP.md Queue 1, '
+                f'"{item}")')

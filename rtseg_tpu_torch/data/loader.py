@@ -24,6 +24,10 @@ from .synthetic import Synthetic
 
 
 class BatchLoader:
+    # (scale, bias) of the uint8 raw tail's on-device normalize, or None:
+    # the port's loader ships host-normalized float32 batches
+    norm_coeffs = None
+
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  shuffle: bool = False, drop_last: bool = False,
                  ignore_index: int = 255, pin_memory: bool = False,

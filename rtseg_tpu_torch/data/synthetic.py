@@ -15,6 +15,10 @@ _NOISE = 0.08      # additive image noise amplitude
 
 
 class Synthetic:
+    # float-native samples: no exact uint8 hand-off (data.get_loader's
+    # device_norm)
+    supports_raw_tail = False
+
     def __init__(self, config, mode: str = 'train', length: int = None):
         self.h = config.crop_h
         self.w = config.crop_w

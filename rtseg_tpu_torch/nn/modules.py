@@ -185,12 +185,14 @@ class GroupNorm(nn.GroupNorm):
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, running_mean: torch.Tensor,
                      running_var: torch.Tensor, eps: float = 1e-5,
-                     momentum: float = 0.9) -> torch.Tensor:
+                     momentum: float = 0.9,
+                     update_stats: bool = True) -> torch.Tensor:
     """Train-mode BatchNorm over NCHW `x`, as Flax computes it: float32
-    (float64 for a float64 input) batch statistics E[x] and E[x^2] - E[x]^2 clipped at 0 (the biased
-    variance), which both normalize `x` and update the running statistics
-    in place, ra = momentum * ra + (1 - momentum) * batch. Returns the
-    input's type.
+    (float64 for a float64 input) batch statistics E[x] and
+    E[x^2] - E[x]^2 clipped at 0 (the biased variance), which both
+    normalize `x` and, unless `update_stats` is False, update the running
+    statistics in place, ra = momentum * ra + (1 - momentum) * batch.
+    Returns the input's type.
 
     nn.BatchNorm2d would update running_var with the unbiased variance
     (n / (n - 1) larger), which at the 1/32-resolution aux heads of a small
@@ -200,9 +202,10 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
     dims = (0, 2, 3)
     mean = xf.mean(dims)
     var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
-    with torch.no_grad():
-        running_mean.mul_(momentum).add_(mean.detach() * (1.0 - momentum))
-        running_var.mul_(momentum).add_(var.detach() * (1.0 - momentum))
+    if update_stats:
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_(mean.detach() * (1.0 - momentum))
+            running_var.mul_(momentum).add_(var.detach() * (1.0 - momentum))
     mul = torch.rsqrt(var + eps) * weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
     return y.to(x.dtype)
@@ -210,7 +213,11 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """BatchNorm2d, eps 1e-5, Flax momentum 0.9 (ema = 0.9*ema + 0.1*new).
-    Eval uses the running statistics; training runs `batch_norm_train`."""
+    Eval uses the running statistics; training runs `batch_norm_train`,
+    which leaves them as they are while `frozen_stats` is set (the
+    recompute of a rematerialized forward, `Recompute`)."""
+
+    frozen_stats = False
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -222,7 +229,8 @@ class BatchNorm(nn.Module):
             return self.bn(x)
         bn = self.bn
         return batch_norm_train(x, bn.weight, bn.bias, bn.running_mean,
-                                bn.running_var, bn.eps)
+                                bn.running_var, bn.eps,
+                                update_stats=not self.frozen_stats)
 
 
 # ------------------------------------------------------------------ conv cores
@@ -463,6 +471,79 @@ def bind_dropout(model: nn.Module, masks: MaskSource, modules=None):
     finally:
         for _, m in modules:
             m.masks = None
+
+
+# -------------------------------------------------------------------- remat
+
+class Recompute:
+    """The contexts of a training forward of `model` under
+    torch.utils.checkpoint (config.remat): call it as checkpoint's
+    `context_fn`. The JAX forward that jax.checkpoint recomputes is pure;
+    the port's is not, so the recompute in the backward
+
+    * leaves BatchNorm's running statistics as the first pass left them
+      (`BatchNorm.frozen_stats`), so they move once a step;
+    * takes the keep masks of the first pass: the first pass records each
+      mask the bound source (`bind_dropout`) gives, and the recompute
+      replays them in order, whatever the source (a step's generator,
+      which checkpoint's preserve_rng_state does not save, or given
+      masks).
+
+    Both are attributes of the model's own modules, set for the block and
+    restored after it: no process-global switch."""
+
+    def __init__(self, model: nn.Module):
+        self.drops = dropout_modules(model)
+        self.norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+    def __call__(self):
+        record = []
+        return self._first(record), self._again(record)
+
+    @contextmanager
+    def _first(self, record):
+        sources = [m.masks for _, m in self.drops]
+
+        def recording(source):
+            def masks(path, shape, keep_prob):
+                keep = source(path, shape, keep_prob)
+                record.append((path, shape, keep))
+                return keep
+            return masks
+
+        for (_, m), source in zip(self.drops, sources):
+            if source is not None:
+                m.masks = recording(source)
+        try:
+            yield
+        finally:
+            for (_, m), source in zip(self.drops, sources):
+                m.masks = source
+
+    @contextmanager
+    def _again(self, record):
+        replay = iter(record)
+
+        def masks(path, shape, keep_prob):
+            got = next(replay, None)
+            if got is None or got[:2] != (path, shape):
+                raise RuntimeError(f'the recompute asked {path!r} for a mask '
+                                   f'of {shape} where the first pass gave '
+                                   f'{got[:2] if got else "none"}')
+            return got[2]
+
+        sources = [m.masks for _, m in self.drops]
+        for _, m in self.drops:
+            m.masks = masks
+        for m in self.norms:
+            m.frozen_stats = True
+        try:
+            yield
+        finally:
+            for (_, m), source in zip(self.drops, sources):
+                m.masks = source
+            for m in self.norms:
+                m.frozen_stats = False
 
 
 # ------------------------------------------------------------- composite heads

@@ -9,8 +9,22 @@ adds the KD term under kd_training (the frozen teacher, in eval mode and
 without autograd, on the same compute-dtype images; its logits against
 the student's main logits, weighted by config.kd_loss_coefficient),
 backpropagates the loss into float32 gradients, writes the step's LR and
-momentum into the SGD param group, updates, and moves the EMA model. One
-card: no gradient all-reduce.
+momentum (SGD) or beta1 (Adam, AdamW) into the param group, updates, and
+moves the EMA model. One card: no gradient all-reduce.
+
+With config.remat the model's training forward, and only it, runs under
+torch.utils.checkpoint (non-reentrant), as the JAX step wraps
+model.apply alone in jax.checkpoint: the loss, the detail targets and the
+KD teacher stay outside. Its recompute in the backward leaves BatchNorm's
+running statistics alone and replays the first pass's dropout and
+drop-path masks (nn/modules.py `Recompute`), so the step equals the one
+without remat.
+
+With norm_coeffs=(scale, bias) the steps take uint8 HWC batches (the raw
+tail of a loader): the train step opens with the per-sample flips of its
+[B, 2] uint8 flag plane and the normalize by table (ops/augment.py), the
+eval and predict steps with the normalize alone, bit-equal to the host's
+float32 batches.
 
 The models with dropout (ENet, MiniNet) draw their keep masks from a
 torch.Generator on the batch's device that the step seeds from
@@ -22,9 +36,10 @@ the card-against-CPU check hand the step their own through
 `dropout_masks`.
 
 Every parameter enters the update with a gradient, zero where autograd left
-none (STDC's `detail_conv`, which only makes the detail targets): torch SGD
-skips a parameter whose gradient is None, where the JAX package's optax
-chain decays every leaf and moves its momentum.
+none (STDC's `detail_conv`, which only makes the detail targets): torch's
+optimizers skip a parameter whose gradient is None, where the JAX
+package's optax chain decays every leaf and moves its momentum or Adam
+moments.
 
 The eval step casts the images to config.compute_dtype, runs the model with
 its final upsample deferred when the fused head is on, computes the int32
@@ -47,15 +62,18 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..losses import (get_detail_loss_fn, get_kd_loss_fn, get_loss_fn,
                       laplacian_pyramid)
-from ..nn.modules import DropoutMasks, bind_dropout, dropout_modules
+from ..nn.modules import (DropoutMasks, Recompute, bind_dropout,
+                          dropout_modules)
+from ..ops.augment import flip_norm, norm_table, normalize
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
 from ..ops.resize import resize_bilinear, resize_nearest
 from ..utils.metrics import confusion_matrix
-from .optim import get_lr_schedule, get_momentum, set_hparams
+from .optim import get_lr_schedule, optimizer_momentum, set_hparams
 from .state import TrainState, ema_mirror, ema_update
 
 
@@ -73,27 +91,40 @@ def compute_dtype(config) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f'{what} is not ported to PyTorch yet; see '
-                              f'ROADMAP.md Queue 1, "{item}"')
+def _make_apply_train(config) -> Callable:
+    """apply_train(model, x): the training forward, under
+    torch.utils.checkpoint with config.remat (`Recompute` for its
+    contexts, made once a model)."""
+    if not config.remat:
+        return lambda model, x: model(x)
+    recompute = [None, None]    # the last model seen and its Recompute
+
+    def apply_train(model, x):
+        if recompute[0] is not model:
+            recompute[:] = [model, Recompute(model)]
+        return checkpoint(model, x, use_reentrant=False,
+                          context_fn=recompute[1])
+    return apply_train
 
 
 def _make_forward_loss(config, teacher=None) -> Callable:
     """forward_loss(model, images, masks) -> (float32 loss, metrics): cast
-    to the compute dtype, training forward, the loss and the aux or detail
-    losses, and under kd_training the KD term of `teacher` (a frozen model
-    in eval mode); metrics holds `loss_detail` with the detail head and
-    `loss_kd` with KD."""
+    to the compute dtype, training forward (rematerialized with
+    config.remat), the loss and the aux or detail losses, and under
+    kd_training the KD term of `teacher` (a frozen model in eval mode);
+    metrics holds `loss_detail` with the detail head and `loss_kd` with
+    KD."""
     if config.kd_training and teacher is None:
         raise ValueError('kd_training needs the teacher model')
     kd_fn = get_kd_loss_fn(config) if config.kd_training else None
     loss_fn = get_loss_fn(config)
     detail_loss_fn = get_detail_loss_fn(config)
     dtype = compute_dtype(config)
+    apply_train = _make_apply_train(config)
 
     def forward_loss(model, images, masks):
         x = images.to(dtype)
-        out = model(x)
+        out = apply_train(model, x)
         metrics = {}
         if config.use_aux:
             preds, preds_aux = out
@@ -148,20 +179,22 @@ def build_train_step(config, norm_coeffs=None,
     read back. `teacher` is the frozen KD teacher under kd_training (the
     trainer's, in eval mode).
 
+    With `norm_coeffs=(scale, bias)`: train_step(state, images_u8, masks,
+    flags), the images uint8 and flags [B, 2] uint8 (h_flip, v_flip), the
+    batch flipped and normalized on its device first (ops/augment.py).
+
     `dropout_masks(step)`, where given, returns the mask source
     (nn/modules.py `MaskSource`) of that step in place of the masks drawn
     from the step's generator: the seam through which tests hand the port
     the masks they hand the JAX package, and the card-against-CPU check
     the same masks on both devices."""
-    if norm_coeffs is not None:
-        _refuse('the uint8 flip+normalize tail (norm_coeffs)',
-                'Optimizer tail')
     forward_loss = _make_forward_loss(config, teacher)
     lr_fn = get_lr_schedule(config)
-    mom = get_momentum(config)
+    mom = optimizer_momentum(config)
     total_itrs = np.float32(max(int(config.total_itrs), 1))
     drops = [None, []]    # the last model seen and its dropout modules
     generators = {}       # device -> the step's dropout generator
+    tables = {}           # device -> the normalize table of norm_coeffs
 
     def drawn_masks(device: torch.device, step: int) -> DropoutMasks:
         g = generators.get(device)
@@ -171,7 +204,16 @@ def build_train_step(config, norm_coeffs=None,
         return DropoutMasks(g)
 
     def train_step(state: TrainState, images: torch.Tensor,
-                   masks: torch.Tensor):
+                   masks: torch.Tensor, flags: Optional[torch.Tensor] = None):
+        if norm_coeffs is not None:
+            table = tables.get(images.device)
+            if table is None:
+                table = tables[images.device] = norm_table(*norm_coeffs,
+                                                           images.device)
+            images, masks = flip_norm(images, masks, flags, table)
+        elif flags is not None:
+            raise ValueError('flip flags need the step built with '
+                             'norm_coeffs')
         model, k = state.model, state.step
         model.train()
         set_hparams(state.optimizer, lr_fn(k),
@@ -213,10 +255,21 @@ def _predict(model, images, dtype, fused: bool) -> torch.Tensor:
     return torch.argmax(out, dim=-1).to(torch.int32)
 
 
-def build_eval_step(config, model, device) -> Callable:
+def _normalizer(norm_coeffs, device) -> Callable:
+    """images -> images: the normalize of uint8 batches by norm_coeffs'
+    table on `device`, or the identity without norm_coeffs."""
+    if norm_coeffs is None:
+        return lambda images: images
+    table = norm_table(*norm_coeffs, device)
+    return lambda images: normalize(images, table)
+
+
+def build_eval_step(config, model, device, norm_coeffs=None) -> Callable:
     """eval_step(images [B,H,W,3], masks [B,H,W]) -> (C, C) int32
-    confusion matrix on `device`."""
+    confusion matrix on `device`; with `norm_coeffs` the images are uint8
+    and normalized on the device first (no flips)."""
     device = torch.device(device)
+    prepare = _normalizer(norm_coeffs, device)
     dtype = compute_dtype(config)
     fused = _resolve(config.fused_head, device)
     cm_fn = (confusion_matrix_pallas
@@ -226,23 +279,24 @@ def build_eval_step(config, model, device) -> Callable:
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-        preds = _predict(model, images, dtype, fused)
+        preds = _predict(model, prepare(images), dtype, fused)
         return cm_fn(preds, masks, num_class, ignore)
 
     eval_step.fused = fused
     return eval_step
 
 
-def build_predict_step(config, model, device) -> Callable:
+def build_predict_step(config, model, device, norm_coeffs=None) -> Callable:
     """predict_step(images [B,H,W,3]) -> int32 predictions [B,H,W], with the
-    same fused-head policy as build_eval_step."""
+    same fused-head and norm_coeffs policy as build_eval_step."""
     device = torch.device(device)
+    prepare = _normalizer(norm_coeffs, device)
     dtype = compute_dtype(config)
     fused = _resolve(config.fused_head, device)
 
     @torch.inference_mode()
     def predict_step(images: torch.Tensor) -> torch.Tensor:
-        return _predict(model, images, dtype, fused)
+        return _predict(model, prepare(images), dtype, fused)
 
     predict_step.fused = fused
     return predict_step

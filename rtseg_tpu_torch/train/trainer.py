@@ -2,11 +2,14 @@
 (counterpart of rtseg_tpu/train/trainer.py: __init__, load_ckpt,
 save_ckpt, run, train_one_epoch, validate, val_best).
 
-  * __init__ builds the model, its EMA copy, SGD, the loaders and the
-    steps, and resumes from last.ckpt when one exists.
+  * __init__ builds the model, its EMA copy, the optimizer (SGD, Adam or
+    AdamW), the loaders and the steps, and resumes from last.ckpt when
+    one exists.
   * run(): the epoch loop with begin_val_epoch / val_interval gating,
     best-score tracking, best.ckpt on improvement, last.ckpt every epoch,
-    and a final val_best().
+    and a final val_best(). The checkpoints are written off the loop by an
+    AsyncCkptWriter (train/checkpoint.py), joined before a checkpoint is
+    read (load_ckpt, val_best) and at the end of run().
   * validate(): the EMA weights, as in the reference and the JAX package
     (with use_ema=False the EMA mirrors the weights exactly).
 
@@ -24,8 +27,21 @@ Under kd_training the teacher (models/registry.py get_teacher_model) is
 built on the trainer's device, loaded from config.teacher_ckpt (a
 checkpoint of the port, train/checkpoint.py) and frozen: eval mode, no
 gradients, outside the optimizer, the EMA and the checkpoints.
-Prediction to files, TensorBoard, segscope telemetry, profiling and the
-compile cache are later slices (ROADMAP.md).
+With config.remat the training forward is rematerialized
+(train/step.py). With config.device_norm_resolved (data.get_loader; no
+ported dataset sets it yet) the steps take the loader's uint8 batches and
+flip flags and normalize on the card (norm_coeffs).
+
+Switches of the JAX trainer and loader that the port does not implement
+raise NotImplementedError naming the ROADMAP.md Queue 1 item that brings
+them: is_testing and spatial_partition > 1 when the trainer is built,
+segpipe_cache and aug_workers > 0 in get_loader, use_tb, use_obs,
+profile_dir and compile_cache in run(). Two are accepted and change no
+result: recompile_guard (the JAX package's guard against a retrace of its
+compiled steps; the port's steps are not traced) and device_prefetch (the
+depth of the JAX package's device prefetch thread; the port copies each
+batch from pinned memory with non_blocking, which overlaps the card's
+work by itself).
 """
 
 from __future__ import annotations
@@ -38,26 +54,32 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..config import refuse_unported
 from ..data import get_loader
 from ..models.registry import get_model, get_teacher_model
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
 from ..utils.torch_import import import_backbone
-from .checkpoint import (load_meta, restore_train_ckpt, restore_weights,
-                         save_best_ckpt, save_train_ckpt)
+from .checkpoint import (AsyncCkptWriter, load_meta, restore_train_ckpt,
+                         restore_weights, snapshot_state, write_best_ckpt,
+                         write_train_ckpt)
 from .optim import get_optimizer
 from .state import TrainState, make_ema_model
 from .step import build_eval_step, build_train_step
 
 _INT32_MAX = np.iinfo(np.int32).max
 
-# config switches of the JAX trainer that the port does not implement yet,
-# with the title of the ROADMAP.md Queue 1 item that brings each
-_NOT_PORTED = (('use_tb', 'TensorBoard logging', 'The planes'),
-               ('use_obs', 'segscope telemetry', 'The planes'),
-               ('profile_dir', 'the profiler trace', 'The planes'),
-               ('compile_cache', 'the compile cache', 'The planes'),
-               ('remat', 'rematerialization', 'Optimizer tail'))
+# config switches of the JAX trainer that the port does not implement yet
+# (config.refuse_unported): those that change what the trainer builds,
+# refused by __init__, and the planes, refused by run()
+_NOT_BUILT = (('is_testing', bool, 'test-set prediction',
+               'Serving engine and predict'),
+              ('spatial_partition', lambda v: v > 1, 'the spatial mesh',
+               'Data parallel'))
+_NOT_PORTED = (('use_tb', bool, 'TensorBoard logging', 'The planes'),
+               ('use_obs', bool, 'segscope telemetry', 'The planes'),
+               ('profile_dir', bool, 'the profiler trace', 'The planes'),
+               ('compile_cache', bool, 'the compile cache', 'The planes'))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,6 +115,7 @@ class _HostScalar:
 class SegTrainer:
     def __init__(self, config, device=None,
                  variables: Optional[Mapping] = None):
+        refuse_unported(config, _NOT_BUILT)
         self.device = resolve_device(device)
         config.resolve(num_devices=1)
         self.config = config
@@ -113,9 +136,17 @@ class SegTrainer:
                                                         model.parameters()),
                                 ema_model=make_ema_model(model))
         self.teacher = self._load_teacher() if config.kd_training else None
-        self.train_step = build_train_step(config, teacher=self.teacher)
+        # the raw uint8 tail (get_loader resolved device_norm): the steps
+        # open with the flip and normalize on the card
+        norm_coeffs = (self.train_loader.norm_coeffs
+                       if config.device_norm_resolved else None)
+        self.train_step = build_train_step(config, norm_coeffs,
+                                           teacher=self.teacher)
         self.eval_step = build_eval_step(config, self.state.ema_model,
-                                         self.device)
+                                         self.device, norm_coeffs)
+        # checkpoint writes run off the epoch loop (save_ckpt); joined
+        # before every read and at the end of run()
+        self._ckpt_writer = AsyncCkptWriter()
         self.cur_epoch = 0
         self.best_score = 0.0
         self.epoch_losses = []             # mean loss per trained epoch
@@ -149,6 +180,7 @@ class SegTrainer:
     # ------------------------------------------------------------------ ckpt
     def load_ckpt(self) -> None:
         cfg = self.config
+        self._ckpt_writer.join()
         path = cfg.load_ckpt_path
         meta = load_meta(path) if cfg.load_ckpt and path else None
         if meta is None:
@@ -164,37 +196,45 @@ class SegTrainer:
             self.logger.info(f'Loaded weights from {path}')
 
     def save_ckpt(self, best: bool = False) -> None:
+        """Queue the checkpoint's write: the loop pays for joining the
+        previous write and a device-side copy of the state; the writer
+        thread reads the copy back and writes it."""
         cfg = self.config
         if not cfg.save_ckpt:
             return
         # cfg.ckpt_name overrides the default name, as in the JAX package
         name = cfg.ckpt_name or ('best.ckpt' if best else 'last.ckpt')
         path = os.path.join(cfg.save_dir, name)
-        save = save_best_ckpt if best else save_train_ckpt
-        save(path, self.state, self.cur_epoch + 1, self.best_score)
+        self._ckpt_writer.join()
+        # best.ckpt holds the EMA weights alone: copy just those
+        snap = snapshot_state(self.state, weights_only=best)
+        write = write_best_ckpt if best else write_train_ckpt
+        epoch, score = self.cur_epoch + 1, float(self.best_score)
+        self._ckpt_writer.submit(lambda: write(path, snap, epoch, score))
 
     # ------------------------------------------------------------------- run
     def run(self) -> float:
         cfg = self.config
-        for flag, what, item in _NOT_PORTED:
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f'{flag}: {what} is not ported to PyTorch yet; set it '
-                    f'off (see ROADMAP.md Queue 1, "{item}")')
+        refuse_unported(cfg, _NOT_PORTED)
         start = time.perf_counter()
-        for epoch in range(self.cur_epoch, cfg.total_epoch):
-            self.cur_epoch = epoch
-            self.train_one_epoch()
-            if (epoch >= cfg.begin_val_epoch
-                    and (epoch + 1) % cfg.val_interval == 0):
-                score = self.validate()
-                if score > self.best_score:
-                    self.best_score = score
-                    self.save_ckpt(best=True)
-            self.save_ckpt(best=False)
-        self.logger.info(
-            f'Training finished in {time.perf_counter() - start:.1f}s')
-        return self.val_best()
+        try:
+            for epoch in range(self.cur_epoch, cfg.total_epoch):
+                self.cur_epoch = epoch
+                self.train_one_epoch()
+                if (epoch >= cfg.begin_val_epoch
+                        and (epoch + 1) % cfg.val_interval == 0):
+                    score = self.validate()
+                    if score > self.best_score:
+                        self.best_score = score
+                        self.save_ckpt(best=True)
+                self.save_ckpt(best=False)
+            self.logger.info(
+                f'Training finished in {time.perf_counter() - start:.1f}s')
+            return self.val_best()
+        finally:
+            # the last write lands, and a failed one raises, before run()
+            # returns
+            self._ckpt_writer.join()
 
     def train_one_epoch(self) -> None:
         """One pass over the train loader. The loss is summed on the device
@@ -208,10 +248,10 @@ class SegTrainer:
         loss_sum, kd_sum, n_steps, lag = None, None, 0, None
         t_log = time.perf_counter()
         try:
-            for i, (imgs, msks) in enumerate(self.train_loader):
-                imgs = imgs.to(self.device, non_blocking=True)
-                msks = msks.to(self.device, non_blocking=True)
-                self.state, metrics = self.train_step(self.state, imgs, msks)
+            for i, batch in enumerate(self.train_loader):
+                # images, masks and, from a raw-tail loader, flip flags
+                batch = [t.to(self.device, non_blocking=True) for t in batch]
+                self.state, metrics = self.train_step(self.state, *batch)
                 loss = metrics['loss']
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 if 'loss_kd' in metrics:
@@ -285,6 +325,7 @@ class SegTrainer:
         """Load best.ckpt into the EMA model and re-validate (reference
         base_trainer.py:165-186)."""
         best_path = os.path.join(self.config.save_dir, 'best.ckpt')
+        self._ckpt_writer.join()      # best.ckpt may still be in flight
         if load_meta(best_path) is not None:
             restore_weights(best_path, self.ema_model)
         return self.validate(val_best=True)

@@ -1,5 +1,6 @@
 """PyTorch port against the JAX package: the trainer's default weights,
-its refusal of `remat`, and the torchvision backbone import.
+`remat` (refused until it was ported), and the torchvision backbone
+import.
 
 * `flax_init_variables` against the Flax twin's `model.init` for
   FastSCNN, BiSeNetv2 and DABNet (PReLU slopes): the same tree, the same
@@ -126,11 +127,19 @@ def test_trainer_without_variables_starts_from_the_flax_init(tmp_path):
 
 
 def test_remat_is_refused(tmp_path):
-    trainer = SegTrainer(_cfg(tmp_path, model='fastscnn', remat=True),
-                         device='cpu')
-    with pytest.raises(NotImplementedError, match='remat'):
+    """remat, once refused, is ported: run() trains with it, to the
+    weights of a run without it (tests/test_torch_remat.py holds the step
+    to the JAX package's)."""
+    runs = []
+    for remat in (True, False):
+        trainer = SegTrainer(_cfg(tmp_path / str(remat), model='fastscnn',
+                                  remat=remat, total_epoch=1),
+                             device='cpu')
         trainer.run()
-    assert trainer.state.step == 0
+        assert trainer.state.step == 2
+        runs.append(dict(_flatten(to_jax_variables(trainer.model))))
+    for k, v in runs[0].items():
+        np.testing.assert_array_equal(v, runs[1][k], '/'.join(k))
 
 
 # ------------------------------------------------------------------ import
@@ -212,6 +221,7 @@ def test_a_resumed_checkpoint_overrides_the_import(tmp_path):
     cfg = _cfg(tmp_path, model='swiftnet', random_seed=8)
     first = SegTrainer(cfg, device='cpu')
     first.save_ckpt()
+    first._ckpt_writer.join()     # the write runs on the writer thread
     path = _torchvision_file(tmp_path, 'resnet18')
     resumed = SegTrainer(_cfg(tmp_path, model='swiftnet', backbone_ckpt=path),
                          device='cpu')

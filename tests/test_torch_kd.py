@@ -263,23 +263,27 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     """The refusals that send the reader to ROADMAP.md name the Queue 1
     item by its title (a renumbering cannot make them stale), and each
     title is an item of ROADMAP.md's Queue 1."""
-    from rtseg_tpu_torch.train import build_train_step, trainer as tr
+    from rtseg_tpu_torch.data import get_loader
+    from rtseg_tpu_torch.train import trainer as tr
     from rtseg_tpu_torch.train.checkpoint import restore_weights
-    from rtseg_tpu_torch.train.optim import get_optimizer
     (tmp_path / 'orbax').mkdir()
     (tmp_path / 'orbax' / 'meta.json').write_text('{}')
     messages = [
-        _message(lambda: get_optimizer(SegConfig(optimizer_type='adam'),
-                                       [torch.zeros(1)])),
-        _message(lambda: build_train_step(SegConfig(), norm_coeffs=(1, 0))),
         _message(lambda: restore_weights(str(tmp_path / 'orbax'),
                                          torch.nn.Linear(1, 1))),
+        _message(lambda: get_loader(SegConfig(dataset='synthetic',
+                                              segpipe_cache=True))),
+        _message(lambda: get_loader(SegConfig(dataset='synthetic',
+                                              aug_workers=2))),
     ]
-    for flag, _, _ in tr._NOT_PORTED:
+    for flag, value in (('is_testing', True), ('spatial_partition', 2)):
+        messages.append(_message(lambda: SegTrainer(
+            SegConfig(**{flag: value}), device='cpu')))
+    for flag, _, _, _ in tr._NOT_PORTED:
         t = SegTrainer.__new__(SegTrainer)
         t.config = SegConfig(**{'use_tb': False, 'use_obs': False,
-                                flag: True if flag in ('use_tb', 'use_obs',
-                                                       'remat') else 'x'})
+                                flag: True if flag in ('use_tb', 'use_obs')
+                                else 'x'})
         messages.append(_message(t.run))
     roadmap = (ROOT / 'ROADMAP.md').read_text()
     queue1 = roadmap[roadmap.index('### Queue 1'):
@@ -289,8 +293,8 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
         found = re.findall(r'ROADMAP\.md Queue 1, "([^"]+)"', text)
         assert len(found) == 1, text
         titles.add(found[0])
-    assert titles == {'Optimizer tail', 'Trainer, checkpoint and data',
-                      'The planes'}
+    assert titles == {'Trainer, checkpoint and data', 'The planes',
+                      'Serving engine and predict', 'Data parallel'}
     for title in titles:
         assert re.search(r'^\d+\. (~~)?\*\*' + re.escape(title), queue1,
                          re.M), title

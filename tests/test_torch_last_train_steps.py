@@ -98,6 +98,7 @@ def test_mininet_resumes_with_the_masks_of_an_uninterrupted_run(tmp_path):
                        device='cpu', variables=variables('mininet'))
     assert step(first, 0) == losses[0]
     first.save_ckpt()
+    first._ckpt_writer.join()     # the write runs on the writer thread
     resumed = SegTrainer(port_config('mininet', tmp_path / 'b', **kw,
                                      load_ckpt=True, resume_training=True,
                                      load_ckpt_path=str(tmp_path / 'b' /

@@ -39,16 +39,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def check_smp_steps(encoder, decoder, n, tmp_path, samples=4):
+def check_smp_steps(encoder, decoder, n, tmp_path, samples=4, config=None):
     """n float32 steps of `samples` samples of the JAX step and the port's
     with equal masks: each loss within 1e-5 relative; params, batch_stats
-    and their EMA within 1e-4. Returns the port's trainer."""
+    and their EMA within 1e-4. `config` adds config switches of both
+    packages. Returns the port's trainer."""
     from rtseg_tpu.config import SegConfig as JaxSegConfig
     from rtseg_tpu.models import get_model as jax_get_model
     from rtseg_tpu.train.optim import get_optimizer
     from rtseg_tpu.train.step import build_train_step as jax_train_step
     kw = dict(KW, model='smp', encoder=encoder, decoder=decoder,
-              train_bs=samples, synthetic_len=3 * samples)
+              train_bs=samples, synthetic_len=3 * samples, **(config or {}))
     jcfg = JaxSegConfig(**kw)
     jcfg.resolve(num_devices=1)
     jcfg.resolve_schedule(train_num=kw['synthetic_len'])

@@ -262,12 +262,23 @@ def test_sgd_matches_the_optax_chain():
 
 
 def test_adam_waits_for_its_roadmap_item():
-    for name in ('adam', 'adamw'):
+    """Adam and AdamW, once refused, are ported: get_optimizer builds
+    torch's (LR 1e-3, beta1 of OneCycle's first step, beta2 0.999, eps
+    1e-8, no decay for Adam, 1e-2 for AdamW), and set_hparams writes beta1
+    where SGD's momentum goes (tests/test_torch_optim_tail.py holds them
+    to optax)."""
+    for name, cls, decay in (('adam', torch.optim.Adam, 0.0),
+                             ('adamw', torch.optim.AdamW, 1e-2)):
         cfg = SegConfig(optimizer_type=name, total_epoch=1)
         cfg.resolve(num_devices=1)
         cfg.resolve_schedule(16)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            toptim.get_optimizer(cfg, [torch.nn.Parameter(torch.ones(1))])
+        opt = toptim.get_optimizer(cfg, [torch.nn.Parameter(torch.ones(1))])
+        group = opt.param_groups[0]
+        assert type(opt) is cls and group['weight_decay'] == decay
+        assert group['lr'] == pytest.approx(1e-3 / 25, rel=1e-5)
+        assert group['betas'] == (pytest.approx(0.95), 0.999)
+        toptim.set_hparams(opt, 1e-3, 0.85)
+        assert group['betas'] == (0.85, 0.999) and 'momentum' not in group
 
 
 # -------------------------------------------------------------- BatchNorm

@@ -247,8 +247,14 @@ def test_train_step_refuses_what_it_does_not_implement(tmp_path):
     # (tests/test_torch_kd.py holds the KD step to the JAX package's)
     with pytest.raises(ValueError, match='teacher'):
         build_train_step(cfg)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_train_step(cfg, norm_coeffs=(1.0, 0.0))
+    # norm_coeffs is ported (tests/test_torch_augment.py): a step built
+    # without it refuses flip flags
+    plain = _config(tmp_path)
+    plain.resolve(num_devices=1)
+    plain.resolve_schedule(4)
+    with pytest.raises(ValueError, match='norm_coeffs'):
+        build_train_step(plain)(None, torch.zeros(1), torch.zeros(1),
+                                torch.zeros(1, 2, dtype=torch.uint8))
     # the detail head is built (STDC's train step is held to the JAX
     # package in tests/test_torch_zoo_train.py)
     cfg = _config(tmp_path, model='stdc', use_aux=False,
@@ -301,8 +307,10 @@ def test_run_matches_jax_and_resumes_exactly(variables, jax_train,
         path = tmp_path / name
         assert (path / 'state.pt').exists(), name
         meta = load_meta(str(path))
+        # a train checkpoint names the optimizer whose state it holds
+        extra = {'optimizer'} if kind == 'train' else set()
         assert meta['kind'] == kind and set(meta) == {'kind', 'cur_epoch',
-                                                      'best_score'}
+                                                      'best_score'} | extra
     assert load_meta(str(tmp_path / 'last.ckpt'))['cur_epoch'] == 2
 
     resumed = SegTrainer(_config(tmp_path), device='cpu')

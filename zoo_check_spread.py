@@ -14,13 +14,16 @@ of the losses, largest absolute difference of the weights).
 
     python3 zoo_check_spread.py liteseg:4 liteseg:16 stdc:16
     python3 zoo_check_spread.py smp-resnet18-pan:4 kd:4
+    python3 zoo_check_spread.py adam-bisenetv2:4 adamw-smp-mit_b2-fpn:4
 
 Each argument names a model of chip_smoke.ZOO (its model name, or
 smp-<encoder>-<decoder> for the smp hub's, chip_smoke.zoo_key) and the
 samples a step; a model of chip_smoke.ZOO_SMALL_RUN runs at the depth and
 for the steps the check cuts it to. `kd` is the KD student of
 chip_smoke.phase_kd with its teacher (chip_smoke.kd_small_config, the
-steps of chip_smoke.KD_SMALL). Runs on the CPU; no card needed.
+steps of chip_smoke.KD_SMALL). `adam-<key>` and `adamw-<key>` are the
+runs of chip_smoke.OPTIM_CHECKS under that optimizer, at the schedule of
+chip_smoke.OPTIM_SMALL. Runs on the CPU; no card needed.
 """
 
 from __future__ import annotations
@@ -66,7 +69,9 @@ def spread(kw: dict, samples: int, tmp: str):
         run = cs._card_vs_cpu_runs(near, ('cpu',), build, **config)['cpu']
         weights = max(cs._same_weights(run[1], ref[1], math.inf),
                       cs._same_weights(run[2], ref[2], math.inf))
-        yield {'model': cs.zoo_key(kw), 'samples': samples, 'draw': seed,
+        yield {'model': cs.zoo_key(kw),
+               'optimizer': kw.get('optimizer_type', 'sgd'),
+               'samples': samples, 'draw': seed,
                'first_step_loss': cs._rel_loss(run[0][:1], ref[0][:1]),
                'all_steps_loss': cs._rel_loss(run[0], ref[0]),
                'weights': weights[0], 'weights_leaf': weights[1]}
@@ -78,6 +83,8 @@ def main() -> int:
     args = parser.parse_args()
     zoo = {cs.zoo_key(kw): kw for _, kw, _, _ in cs.ZOO}
     zoo['kd'] = None
+    for _, kw, _ in cs.OPTIM_CHECKS:
+        zoo[f"{kw['optimizer_type']}-{cs.zoo_key(kw)}"] = kw
     tmp = tempfile.mkdtemp(prefix='zoo_check_spread_')
     try:
         for item in args.runs:
