@@ -109,13 +109,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 [16,512,1024,19] -> 1024x2048; K1 at several class
      counts (each checked); the slice's imgs/s; K1's row loop at the
      issue rate, from its SASS (phase 1)
-  9. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...} and
-     {"import": ...} lines, and the {"kernels": [...]} line, whose launch
-     counts are those of the eval slice (phase 4), the train run (phase
-     5), the zoo's runs (phase 6), the KD runs (phase 6b) and the
-     optimizer tail's runs and eval step (phase 6c) together, checked
-     exactly against the counts they give: K1 73, K2 105;
-  10. the {"ok": true, ...} line.
+  9. main (phase_main): main_torch.py on Cityscapes PNGs. (a) a tree of
+     32 train and 16 val 1024x2048 street-like PNGs in two cities, written
+     by the port's encoder with the five filters cycled; the native host
+     library built and used (the host ms a sample for decode, prefix and
+     suffix with it and with numpy); (b) the README's recipe
+     (examples/train_bisenetv2_cityscapes.py: BiSeNetv2, aux heads, OHEM,
+     EMA, crop 1024, randscale -0.5..1.0, color jitter 0.5, h_flip 0.5,
+     bs16) through main_torch.main for 2 epochs of 2 steps, then a resume
+     to epoch 3: steps, finite losses and mIoU, last and best written, K1
+     and K2 launches; the loop's ms a step and data-wait share beside the
+     step on a resident batch; (c) the raw uint8 tail (jitter off, the
+     packed cache, 8 augment worker processes, device prefetch 2):
+     device_norm resolved, uint8 batches and [16, 2] flags on the card,
+     the first step's loss against the float tail's on the same samples
+     (1e-5), every prefetched batch over 2 epochs equal to a synchronous
+     copy; host ms a batch at steady state (an epoch of 8 batches) with 8
+     threads and with 8 worker processes; (d)
+     CONVERGENCE.md's flagship recipe (synthetic, 8 classes, crop 128,
+     bs32, 512 samples, validation every 2 epochs) for 10 epochs and a
+     resume to 20, the loss and EMA mIoU at each validation, the final
+     mIoU above epoch 2's; then the pools' fork server and resource
+     tracker stopped (segpipe.shutdown), and after phase 8 no process this
+     script started still running (read from /proc)
+  10. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
+     {"import": ...} and {"main": ...} lines, and the {"kernels": [...]}
+     line, whose launch counts are those of the eval slice (phase 4), the
+     train run (phase 5), the zoo's runs (phase 6), the KD runs (phase
+     6b), the optimizer tail's runs and eval step (phase 6c) and phase 9's
+     runs together, checked exactly against the counts they give: K1 129,
+     K2 161;
+  11. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -2282,6 +2306,439 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
     ]
 
 
+# ------------------------------------------------------------------ phase 9
+MAIN_TRAIN, MAIN_VAL = 32, 16          # Cityscapes-layout tree, 1024x2048
+MAIN_CELL = 64                          # its 16 x 32 cells' pixels
+# examples/train_bisenetv2_cityscapes.py, the README's headline recipe, cut
+# from 800 epochs to 2
+RECIPE = ['--dataset', 'cityscapes', '--num_class', '19', '--model',
+          'bisenetv2', '--use_aux', '--aux_coef', '1', '1', '1', '1',
+          '--loss_type', 'ohem', '--train_bs', '16', '--base_lr', '0.05',
+          '--use_ema', '--crop_size', '1024', '--randscale', '-0.5', '1.0',
+          '--h_flip', '0.5', '--use_tb', 'false', '--use_obs', 'false']
+JITTER = ['--brightness', '0.5', '--contrast', '0.5', '--saturation', '0.5']
+# CONVERGENCE.md's flagship recipe (the fields the parser has no flag for
+# go in the config)
+CONVERGE = dict(dataset='synthetic', model='bisenetv2', num_class=8,
+                use_aux=True, loss_type='ohem', use_ema=True, train_bs=32,
+                val_bs=32, crop_size=128, synthetic_len=512, val_interval=2,
+                use_tb=False, use_obs=False)
+
+
+def street_tree(root: str, seed: int = 0, cell: int = 64) -> None:
+    """A Cityscapes tree of 1024x2048 PNGs in two cities: street-like
+    trainId fields (sky, buildings, road bands and objects in cells)
+    rendered through the synthetic dataset's palette with noise, masks as
+    8-bit labelIds through the inverse of ID_TO_TRAIN_ID (255 -> 0,
+    unlabeled); written by the port's encoder cycling the five filters.
+    The field has 16 x 32 cells of `cell` pixels."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.data.cityscapes import ID_TO_TRAIN_ID
+    to_id = np.zeros(256, np.uint8)
+    for raw in range(len(ID_TO_TRAIN_ID) - 1, -1, -1):
+        if ID_TO_TRAIN_ID[raw] != 255:
+            to_id[ID_TO_TRAIN_ID[raw]] = raw
+    palette = (np.random.default_rng(12345).random((C, 3)) * 255)
+
+    def sample(mode, i):
+        rng = np.random.default_rng((seed, mode == 'val', i))
+        cells = np.empty((16, 32), np.int64)
+        cells[:4] = 10                                   # sky
+        cells[4:9] = rng.choice([2, 3, 4, 8], (5, 32))   # buildings, trees
+        cells[9:12] = rng.choice([1, 5, 6, 7, 11, 12], (3, 32))
+        cells[12:] = rng.choice([0, 0, 0, 13, 14, 15, 9], (4, 32))  # road
+        cells[rng.random((16, 32)) < 0.05] = 255          # unlabeled
+        train_id = np.repeat(np.repeat(cells, cell, 0), cell, 1)
+        img = palette[np.minimum(train_id, C - 1)]
+        img = img + rng.normal(0, 12, img.shape)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        city = ('aachen', 'bremen')[i % 2]
+        stem = f'{city}_{i:06d}_000019'
+        for sub, name, arr in (
+                ('leftImg8bit', f'{stem}_leftImg8bit.png', img),
+                ('gtFine', f'{stem}_gtFine_labelIds.png',
+                 to_id[train_id])):
+            d = os.path.join(root, sub, mode, city)
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, name), 'wb') as f:
+                f.write(png.encode(arr, (0, 1, 2, 3, 4), idat_chunks=3,
+                                   level=1))
+
+    jobs = [('train', i) for i in range(MAIN_TRAIN)] + [
+        ('val', i) for i in range(MAIN_VAL)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda j: sample(*j), jobs))
+
+
+class _NumpyHost:
+    """The native routines replaced by None for the block, so the callers
+    take their numpy paths."""
+    NAMES = ('png_unfilter', 'resize_linear_u8', 'resize_nearest',
+             'normalize_hwc', 'hflip_mask')
+
+    def __enter__(self):
+        from rtseg_tpu_torch import native
+        self.saved = {n: getattr(native, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(native, n, lambda *a, **k: None)
+
+    def __exit__(self, *exc):
+        from rtseg_tpu_torch import native
+        for n, fn in self.saved.items():
+            setattr(native, n, fn)
+
+
+def _host_sample_ms(ds, i: int, reps: int):
+    """(decode, prefix, suffix) host ms of sample i, mean of reps."""
+    from rtseg_tpu_torch.data import png
+    t = np.zeros(3)
+    for r in range(reps):
+        t0 = time.perf_counter()
+        image = png.read(ds.images[i], 'RGB')
+        mask = png.read(ds.masks[i], 'L')
+        t1 = time.perf_counter()
+        image, mask = ds.transform.prefix(image, mask)
+        t2 = time.perf_counter()
+        ds.augment(image, mask, np.random.default_rng((r, i)))
+        t += [t1 - t0, t2 - t1, time.perf_counter() - t2]
+    return (t / reps * 1e3).tolist()
+
+
+class _Repeat:
+    """A dataset, or a packed cache, read `k` times over: sample i is
+    sample i mod n. An epoch of the loader then holds k times the batches,
+    as a real split's epoch holds many, for its steady-state rate."""
+
+    def __init__(self, inner, k: int):
+        self.inner, self.n, self.k = inner, len(inner), k
+
+    def __len__(self):
+        return self.n * self.k
+
+    def read(self, i):
+        return self.inner.read(i % self.n)
+
+    def prepare(self, i):
+        return self.inner.prepare(i % self.n)
+
+    def augment(self, *a):
+        return self.inner.augment(*a)
+
+    def augment_raw(self, *a):
+        return self.inner.augment_raw(*a)
+
+    @property
+    def supports_raw_tail(self):
+        return self.inner.supports_raw_tail
+
+
+def _loader_batch_ms(loader):
+    """Host ms a batch over one epoch of the loader, the start of its
+    threads or worker processes included."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _recording_steps():
+    """Wrap the trainer's build_train_step so each step built records the
+    types, shapes and devices of its first call's batch."""
+    from rtseg_tpu_torch.train import trainer as trainer_mod
+    seen = []
+    build = trainer_mod.build_train_step
+
+    def recording(*a, **k):
+        step = build(*a, **k)
+
+        def wrapped(state, *batch):
+            if not seen or seen[-1][0] is not step:
+                seen.append((step, [(t.dtype, tuple(t.shape), t.device.type)
+                                    for t in batch]))
+            return step(state, *batch)
+        return wrapped
+    trainer_mod.build_train_step = recording
+    return seen, lambda: setattr(trainer_mod, 'build_train_step', build)
+
+
+def phase_main(dev, card):
+    """main_torch.py on the card: (a) a Cityscapes tree of PNGs; (b) the
+    README's BiSeNetv2 recipe for 2 epochs and a resume to 3; (c) the raw
+    uint8 tail with the packed cache, 8 worker processes and the
+    prefetcher; (d) CONVERGENCE.md's flagship recipe for 10 epochs and a
+    resume to 20. Host times a sample and a batch, the step's wall and
+    device time, the loop's data wait."""
+    import os
+    import main_torch
+    from rtseg_tpu_torch import native
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.data import get_dataset, get_loader
+    from rtseg_tpu_torch.data.loader import ShardedLoader
+    from rtseg_tpu_torch.train import SegTrainer
+
+    out, launches = {}, {'resize_argmax': 0, 'confusion_matrix': 0}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_main_')
+    try:
+        # (a) the tree
+        check(native.available(),
+              f'the native host library did not build: {native.build_error()}')
+        root = os.path.join(tmp, 'cityscapes')
+        t0 = time.perf_counter()
+        street_tree(root, cell=MAIN_CELL)
+        out['tree_s'] = time.perf_counter() - t0
+        say(f'main (a): {MAIN_TRAIN} train and {MAIN_VAL} val 1024x2048 PNGs '
+            f'(filters 0-4 cycled) written in {out["tree_s"]:.2f} s; native '
+            f'host library built')
+
+        # host ms a sample, native and numpy, on the recipe's train split
+        train_ds = get_dataset(SegConfig(data_root=root, crop_size=1024,
+                                         randscale=(-0.5, 1.0),
+                                         brightness=0.5, contrast=0.5,
+                                         saturation=0.5, h_flip=0.5,
+                                         dataset='cityscapes').resolve())[0]
+        native.reset_counts()
+        host = {'native': _host_sample_ms(train_ds, 0, 3)}
+        used = native.counts()
+        for name in ('png_unfilter', 'resize_linear_u8', 'resize_nearest',
+                     'normalize_hwc'):
+            check(used.get(name, 0) > 0, f'native {name} was not used')
+        with _NumpyHost():
+            host['numpy'] = _host_sample_ms(train_ds, 0, 1)
+        out['host_sample_ms'] = host
+        say('main host ms a sample (decode, prefix, suffix with jitter) at '
+            '1024x2048: ' + '; '.join(
+                f'{k} {v[0]:.1f}, {v[1]:.1f}, {v[2]:.1f}'
+                for k, v in host.items()))
+
+        # (b) the README's recipe through main_torch.main
+        save = os.path.join(tmp, 'recipe')
+        argv = RECIPE + JITTER + ['--data_root', root, '--save_dir', save]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (trainer, score), n = _counted(lambda: main_torch.main(
+            argv + ['--total_epoch', '2']))
+        wall_b = time.perf_counter() - t0
+        n_val = len(trainer.val_loader)
+        check([s['steps'] for s in trainer.epoch_stats] == [2, 2],
+              f'recipe steps {trainer.epoch_stats}')
+        check(len(trainer.epoch_losses) == 2
+              and np.isfinite(trainer.epoch_losses).all()
+              and math.isfinite(score), f'recipe losses '
+              f'{trainer.epoch_losses}, mIoU {score}')
+        check(n == {'resize_argmax': 3 * n_val, 'confusion_matrix': 3 * n_val},
+              f'recipe launches {n}')
+        for name in ('last.ckpt', 'best.ckpt'):
+            check(os.path.exists(os.path.join(save, name)), f'no {name}')
+        launches = {k: launches[k] + n[k] for k in launches}
+        stats_b = trainer.epoch_stats
+        # the step on a resident batch: the card's time beside the loop's
+        trainer.train_loader.set_epoch(0)
+        batch = [t.to(dev) for t in next(iter(trainer.train_loader))]
+        step_ms = time_ms(lambda: trainer.train_step(trainer.state, *batch),
+                          iters=3, warmup=1)
+        del batch, trainer
+        (resumed, score_r), n = _counted(lambda: main_torch.main(
+            argv + ['--total_epoch', '3']))
+        check(len(resumed.epoch_losses) == 1
+              and resumed.val_history[0][0] == 3
+              and np.isfinite(resumed.epoch_losses).all(),
+              f'resume: {resumed.epoch_losses}, {resumed.val_history}')
+        check(n == {'resize_argmax': 2 * n_val, 'confusion_matrix': 2 * n_val},
+              f'resume launches {n}')
+        launches = {k: launches[k] + n[k] for k in launches}
+        loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats_b]
+        wait = [s['data_wait_s'] / s['wall_s'] for s in stats_b]
+        out['recipe'] = {'wall_s': wall_b, 'losses': resumed.epoch_losses,
+                         'miou': score, 'resumed_miou': score_r,
+                         'loop_ms_a_step': loop, 'data_wait_share': wait,
+                         'device_step_ms': step_ms}
+        say(f'main (b) README recipe (BiSeNetv2 aux OHEM EMA, crop 1024, '
+            f'randscale -0.5..1.0, jitter 0.5, bs16; {card}): run() 2 epochs '
+            f'of 2 steps {wall_b:.2f} s, mIoU {score:.4f}; loop ms a step by '
+            f'epoch {[round(x, 1) for x in loop]}, data wait share '
+            f'{[round(x, 3) for x in wait]}; the step on a resident batch '
+            f'{step_ms:.2f} ms; resume to epoch 3: loss '
+            f'{resumed.epoch_losses[0]:.4f}, mIoU {score_r:.4f}')
+        del resumed
+
+        # (c) the raw uint8 tail: cache, 8 worker processes, prefetch 2
+        seen, restore = _recording_steps()
+        save = os.path.join(tmp, 'raw')
+        raw_cfg = main_torch.default_config()
+        for k, v in dict(segpipe_cache=True, aug_workers=8,
+                         device_prefetch=2).items():
+            setattr(raw_cfg, k, v)
+        try:
+            t0 = time.perf_counter()
+            (trainer, score), n = _counted(lambda: main_torch.main(
+                RECIPE + ['--data_root', root, '--save_dir', save,
+                          '--total_epoch', '2'], config=raw_cfg))
+            wall_c = time.perf_counter() - t0
+        finally:
+            restore()
+        check(trainer.config.device_norm_resolved, 'raw tail not resolved')
+        types = seen[-1][1]
+        bs = int(RECIPE[RECIPE.index('--train_bs') + 1])
+        check(types[0][0] == torch.uint8 and types[2] == (
+            torch.uint8, (bs, 2), 'cuda') and types[0][2] == 'cuda',
+              f'raw-tail batches reached the step as {types}')
+        check(n == {'resize_argmax': 3 * n_val, 'confusion_matrix': 3 * n_val},
+              f'raw-tail launches {n}')
+        launches = {k: launches[k] + n[k] for k in launches}
+        stats_c = trainer.epoch_stats
+        del trainer
+        # the first step on the raw tail against the float tail, from the
+        # same init, on the same samples (deterministic cuDNN)
+        losses = {}
+        old = _deterministic(True)
+        try:
+            for tail, norm in (('raw', None), ('float', False)):
+                cfg = main_torch.load_parser(main_torch.default_config(),
+                                             RECIPE + ['--data_root', root])
+                cfg.save_dir = os.path.join(tmp, f'first_{tail}')
+                cfg.device_norm = norm
+                cfg.base_workers = 8
+                t = SegTrainer(cfg.resolve())
+                check(t.config.device_norm_resolved == (tail == 'raw'),
+                      f'{tail} tail resolved {t.config.device_norm_resolved}')
+                t.train_loader.set_epoch(0)
+                b = [x.to(dev) for x in next(iter(t.train_loader))]
+                _, metrics = t.train_step(t.state, *b)
+                losses[tail] = float(metrics['loss'])
+                if tail == 'raw':
+                    raw_trainer = t
+                del b
+        finally:
+            _deterministic(old)
+        rel = abs(losses['raw'] - losses['float']) / abs(losses['float'])
+        check(rel <= 1e-5, f'raw vs float first loss {losses} ({rel})')
+        del t
+        # each prefetched batch (side stream, pinned ring) against the same
+        # batch copied synchronously, over 2 epochs (the ring of 3 slots
+        # wraps), with the card kept busy between batches
+        busy = torch.randn(4096, 4096, device=dev)
+        n_batches = 0
+        for epoch in (0, 1):
+            loader = raw_trainer.train_loader
+            loader.set_epoch(epoch)
+            sync = [[x.to(dev) for x in b] for b in loader]
+            loader.set_epoch(epoch)
+            for got, want in zip(raw_trainer._batches(loader), sync):
+                for _ in range(20):
+                    busy = busy @ busy * 1e-4
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f'prefetched batch {n_batches} differs')
+                n_batches += 1
+        del busy, sync, raw_trainer
+        # host ms a batch at steady state: an epoch of 8 batches (the
+        # tree's samples 4 times over), float tail with jitter (b) and raw
+        # tail from the cache (c), 8 threads or 8 worker processes
+        per_batch = {}
+        for name, extra in (('float+jitter', dict(brightness=0.5,
+                                                  contrast=0.5,
+                                                  saturation=0.5)),
+                            ('raw+cache', dict(segpipe_cache=True))):
+            cfg = main_torch.load_parser(main_torch.default_config(),
+                                         RECIPE + ['--data_root', root])
+            cfg.save_dir = save
+            for k, v in extra.items():
+                setattr(cfg, k, v)
+            loader = get_loader(cfg.resolve())[0]
+            ds = _Repeat(loader.dataset, 4)
+            cache = loader.source.cache
+            for workers in (0, 8):
+                per_batch[f'{name}, aug_workers {workers}'] = \
+                    _loader_batch_ms(ShardedLoader(
+                        ds, loader.global_batch, seed=1,
+                        workers=cfg.base_workers, raw_tail=loader.raw_tail,
+                        cache=None if cache is None else _Repeat(cache, 4),
+                        mp_workers=workers))
+        loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats_c]
+        wait = [s['data_wait_s'] / s['wall_s'] for s in stats_c]
+        out['raw'] = {'wall_s': wall_c, 'miou': score, 'first_loss': losses,
+                      'first_loss_rel': rel, 'batch_types': [
+                          [str(d), s, v] for d, s, v in types],
+                      'prefetched_batches_checked': n_batches,
+                      'loop_ms_a_step': loop, 'data_wait_share': wait,
+                      'host_batch_ms': per_batch}
+        say(f'main (c) raw uint8 tail (cache, 8 worker processes, prefetch '
+            f'2): run() {wall_c:.2f} s, mIoU {score:.4f}, batches reach the '
+            f'step as {types}; first loss raw {losses["raw"]:.7f} vs float '
+            f'{losses["float"]:.7f} (rel {rel:.2e}, tolerance 1e-5); '
+            f'{n_batches} prefetched batches equal to synchronous copies; '
+            f'loop ms a step {[round(x, 1) for x in loop]}, data wait share '
+            f'{[round(x, 3) for x in wait]}')
+        say('main host ms a batch of 16 at crop 1024, an epoch of 8 '
+            'batches: ' + '; '.join(
+            f'{k} {v:.1f}' for k, v in per_batch.items()))
+
+        # (d) the convergence run: 10 epochs, then a resume to 20
+        save = os.path.join(tmp, 'converge')
+        rows, walls = [], []
+        for epochs in (10, 20):
+            cfg = SegConfig(**CONVERGE)
+            t0 = time.perf_counter()
+            (t, score), n = _counted(lambda: main_torch.main(
+                ['--save_dir', save, '--total_epoch', str(epochs)],
+                config=cfg))
+            walls.append(time.perf_counter() - t0)
+            n_val = len(t.val_loader)
+            check(n == {k: (len(t.val_history) + 1) * n_val
+                        for k in launches}, f'convergence launches {n}')
+            launches = {k: launches[k] + n[k] for k in launches}
+            first = epochs - 10
+            check(len(t.epoch_losses) == 10
+                  and t.val_history[0][0] == first + 2,
+                  f'run to {epochs}: {len(t.epoch_losses)} epochs, '
+                  f'{t.val_history}')
+            check(np.isfinite(t.epoch_losses).all(), 'convergence loss')
+            for e, miou in t.val_history:
+                rows.append((e, t.epoch_losses[e - first - 1], miou))
+                say(f'main (d) epoch {e}: loss {rows[-1][1]:.4f}, EMA mIoU '
+                    f'{miou:.4f}')
+            del t
+        check(rows[-1][2] > rows[0][2],
+              f'final mIoU {rows[-1][2]} not above epoch 2\'s {rows[0][2]}')
+        out['converge'] = {'rows': rows, 'walls_s': walls,
+                           'val_best': score}
+        say(f'main (d) CONVERGENCE.md recipe: 10 epochs {walls[0]:.2f} s, '
+            f'resumed at epoch 10 to 20 {walls[1]:.2f} s; val_best '
+            f'{score:.4f}')
+        out['launches'] = launches
+        return launches, out
+    finally:
+        # the worker pools' fork server and resource tracker would
+        # otherwise outlive the script for a moment
+        from rtseg_tpu_torch.data.segpipe import shutdown
+        shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _descendants() -> list:
+    """(pid, command) of every live process this one started, directly or
+    not, read from /proc."""
+    import os
+    children = {}
+    for entry in os.listdir('/proc'):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f'/proc/{entry}/stat') as f:
+                stat = f.read()
+        except OSError:             # ended while the table was read
+            continue
+        comm = stat[stat.index('(') + 1:stat.rindex(')')]
+        ppid = int(stat[stat.rindex(')') + 2:].split()[1])
+        children.setdefault(ppid, []).append((int(entry), comm))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid, comm in children.get(todo.pop(), []):
+            found.append((pid, comm))
+            todo.append(pid)
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -2314,24 +2771,34 @@ def main() -> int:
     optim_launches, optim = phase_optim(dev, card, imgs, msks)
     elapsed('6c (optimizer tail)')
     imports = phase_import(dev)
+    elapsed('7 (import)')
+    main_launches, main_run = phase_main(dev, card)
+    elapsed('9 (main)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
-                + optim_launches[k] for k, v in launches.items()}
+                + optim_launches[k] + main_launches[k]
+                for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
     # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits), 2 each
     # for the MiT-b2 AdamW and the BiSeNetv2 Adam runs and 1 for the eval
-    # step with norm_coeffs
+    # step with norm_coeffs; phase 9: 5 for the README recipe and its
+    # resume, 3 for the raw tail's run, 6 validations of 4 batches in each
+    # half of the convergence run
     want = {'resize_argmax': 15 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
             'confusion_matrix': 15 + 2 * len(ZOO)}
+    want = {k: v + 5 + 3 + 2 * 6 * 4 for k, v in want.items()}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
-    elapsed('7-8 (import, times)')
+    elapsed('8 (times)')
+    left = _descendants()
+    check(not left, f'processes left running: {left}')
     say(json.dumps({'train': train}))
     say(json.dumps({'zoo': zoo}))
     say(json.dumps({'kd': kd}))
     say(json.dumps({'optim': optim}))
     say(json.dumps({'import': imports}))
+    say(json.dumps({'main': main_run}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,0 +1,56 @@
+"""Entry point of the PyTorch/CUDA port (counterpart of main.py): build the
+config, overlay the command line, resolve, construct SegTrainer, run.
+
+    python main_torch.py --dataset cityscapes --data_root data/cityscapes \\
+        --model bisenetv2 --use_aux --total_epoch 2
+    python main_torch.py --device cpu ...      # the CPU, named explicitly
+
+It runs on the CUDA card. `--device cpu` is the only other choice; this
+script takes it and passes the remaining flags to the config parser
+(rtseg_tpu_torch/config/parser.py, the JAX package's flags). Without a
+card and without `--device cpu` SegTrainer raises. `main(argv, config)`
+is the same from Python: `config` replaces main.py's default config, as
+examples/ build theirs, and carries fields the parser has no flag for
+(synthetic_len, segpipe_cache, aug_workers, device_prefetch,
+device_norm). Prediction (`--is_testing`) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+from rtseg_tpu_torch.config import SegConfig, load_parser
+from rtseg_tpu_torch.train import SegTrainer
+
+
+def default_config() -> SegConfig:
+    """main.py's config: BiSeNetv2 on 19-class Cityscapes."""
+    return SegConfig(dataset='cityscapes', data_root='data/cityscapes',
+                     num_class=19, model='bisenetv2')
+
+
+def split_device(argv: Sequence[str]):
+    """(device or None, the other arguments): `--device cpu` or
+    `--device=cpu` (or cuda) is taken out of argv."""
+    p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    p.add_argument('--device', choices=['cpu', 'cuda'])
+    args, rest = p.parse_known_args(list(argv))
+    return args.device, rest
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         config: Optional[SegConfig] = None):
+    """Train as main.py does; returns (trainer, the final val_best mIoU)."""
+    device, rest = split_device(sys.argv[1:] if argv is None else argv)
+    config = default_config() if config is None else config
+    if rest:
+        config = load_parser(config, rest)
+    config.resolve()
+    trainer = SegTrainer(config, device=device)
+    return trainer, trainer.run()
+
+
+if __name__ == '__main__':
+    main()

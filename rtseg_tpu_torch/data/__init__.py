@@ -1,48 +1,73 @@
-"""Loader factories (counterpart of rtseg_tpu/data/__init__.py). Only the
-synthetic dataset is ported (see ROADMAP.md Queue 1, "Trainer, checkpoint and
-data")."""
+"""Dataset hub and loader factory (counterpart of
+rtseg_tpu/data/__init__.py). The test-folder reader of prediction is not
+ported yet (ROADMAP.md Queue 1, "Serving engine and predict")."""
 
-from ..config import refuse_unported
-from .loader import BatchLoader, check_dataset, get_val_loader
+from __future__ import annotations
+
+import warnings
+
+from .cityscapes import Cityscapes
+from .custom import Custom
+from .loader import ShardedLoader
 from .synthetic import Synthetic
 
-# segpipe's switches of the JAX loader, which the port does not implement
-# yet (config.refuse_unported)
-_NOT_PORTED = (
-    ('segpipe_cache', bool, 'the packed sample cache',
-     'Trainer, checkpoint and data'),
-    ('aug_workers', lambda v: v > 0, 'the process augment workers',
-     'Trainer, checkpoint and data'))
+dataset_hub = {
+    'cityscapes': Cityscapes,
+    'custom': Custom,
+    'synthetic': Synthetic,
+}
 
 
-def get_loader(config, pin_memory: bool = False):
-    """(train, val) loaders of config.dataset. train_num is truncated to a
-    multiple of the batch (the loader drops the ragged tail), then the
-    schedule is resolved from it (config.resolve_schedule).
+def get_dataset(config):
+    if config.dataset not in dataset_hub:
+        raise NotImplementedError('Unsupported dataset!')
+    cls = dataset_hub[config.dataset]
+    return cls(config, mode='train'), cls(config, mode='val')
 
-    config.device_norm (the raw uint8 tail; None = on exactly where both
-    splits' augment tails hand uint8 over exactly) resolves, as in the JAX
-    package, into config.device_norm_resolved, which tells the trainer to
-    build its steps with the loader's norm_coeffs. No ported dataset has
-    the raw tail: None resolves to False and True raises the JAX
-    package's ValueError."""
-    check_dataset(config)
-    refuse_unported(config, _NOT_PORTED)
-    train_ds = Synthetic(config, mode='train')
-    if len(train_ds) < config.train_bs:
+
+def _open_cache(dataset, config):
+    """Build or open the packed cache of one split; a dataset that cannot
+    be packed (synthetic has no cache_spec) takes the decode path with a
+    warning, as in the JAX package."""
+    from .segpipe import CacheUnsupported, open_or_build
+    try:
+        return open_or_build(dataset, config.cache_dir)
+    except CacheUnsupported as e:
+        warnings.warn(f'segpipe cache disabled for '
+                      f'{type(dataset).__name__}: {e}', stacklevel=2)
+        return None
+
+
+def get_loader(config):
+    """(train, val) ShardedLoaders of config.dataset; fills
+    config.train_num (truncated to a multiple of the global batch: the
+    train loader drops the ragged tail), val_num and the schedule.
+
+    segpipe is wired here: the packed cache (config.segpipe_cache), the
+    augment worker processes (config.aug_workers) and the raw uint8 tail
+    (config.device_norm; None = on exactly where both splits' augment
+    tails hand uint8 over exactly), resolved into
+    config.device_norm_resolved, which tells the trainer to build its
+    steps with the loader's norm_coeffs."""
+    train_ds, val_ds = get_dataset(config)
+    global_train = config.train_bs * config.gpu_num
+    global_val = config.val_bs * config.gpu_num
+    if len(train_ds) < global_train:
         raise ValueError(
             f'Training set ({len(train_ds)} samples) is smaller than the '
-            f'batch ({config.train_bs}); reduce train_bs.')
-    config.train_num = len(train_ds) // config.train_bs * config.train_bs
+            f'global batch ({global_train}); reduce train_bs or device count.')
+    config.train_num = len(train_ds) // global_train * global_train
+    config.val_num = len(val_ds)
     config.resolve_schedule(config.train_num)
-    train_loader = BatchLoader(
-        train_ds, config.train_bs, seed=config.random_seed, shuffle=True,
-        drop_last=True, ignore_index=config.ignore_index,
-        pin_memory=pin_memory, workers=config.base_workers)
-    val_loader = get_val_loader(config, pin_memory)
+
+    train_cache = val_cache = None
+    if config.segpipe_cache:
+        train_cache = _open_cache(train_ds, config)
+        val_cache = _open_cache(val_ds, config)
+
     raw = config.device_norm
-    supported = (train_ds.supports_raw_tail
-                 and val_loader.dataset.supports_raw_tail)
+    supported = (getattr(train_ds, 'supports_raw_tail', False)
+                 and getattr(val_ds, 'supports_raw_tail', False))
     if raw is None:
         raw = supported
     elif raw and not supported:
@@ -51,7 +76,19 @@ def get_loader(config, pin_memory: bool = False):
             f'no exact uint8 handoff (float-native samples or color '
             f'jitter enabled); set device_norm=None/False')
     config.device_norm_resolved = bool(raw)
+
+    train_loader = ShardedLoader(
+        train_ds, global_train, seed=config.random_seed, shuffle=True,
+        drop_last=True, ignore_index=config.ignore_index,
+        workers=config.base_workers, cache=train_cache, raw_tail=raw,
+        emit_flags=True, mp_workers=config.aug_workers)
+    val_loader = ShardedLoader(
+        val_ds, global_val, seed=config.random_seed, shuffle=False,
+        drop_last=False, ignore_index=config.ignore_index,
+        workers=config.base_workers, cache=val_cache, raw_tail=raw,
+        emit_flags=False, mp_workers=config.aug_workers)
     return train_loader, val_loader
 
 
-__all__ = ['BatchLoader', 'get_loader', 'get_val_loader', 'Synthetic']
+__all__ = ['Cityscapes', 'Custom', 'Synthetic', 'ShardedLoader',
+           'dataset_hub', 'get_dataset', 'get_loader']

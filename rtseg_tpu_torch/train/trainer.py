@@ -28,25 +28,29 @@ built on the trainer's device, loaded from config.teacher_ckpt (a
 checkpoint of the port, train/checkpoint.py) and frozen: eval mode, no
 gradients, outside the optimizer, the EMA and the checkpoints.
 With config.remat the training forward is rematerialized
-(train/step.py). With config.device_norm_resolved (data.get_loader; no
-ported dataset sets it yet) the steps take the loader's uint8 batches and
-flip flags and normalize on the card (norm_coeffs).
+(train/step.py). With config.device_norm_resolved (data.get_loader: the
+raw uint8 tail of Cityscapes and Custom) the steps take the loader's
+uint8 batches and flip flags and normalize on the card (norm_coeffs).
 
-Switches of the JAX trainer and loader that the port does not implement
-raise NotImplementedError naming the ROADMAP.md Queue 1 item that brings
-them: is_testing and spatial_partition > 1 when the trainer is built,
-segpipe_cache and aug_workers > 0 in get_loader, use_tb, use_obs,
-profile_dir and compile_cache in run(). Two are accepted and change no
-result: recompile_guard (the JAX package's guard against a retrace of its
-compiled steps; the port's steps are not traced) and device_prefetch (the
-depth of the JAX package's device prefetch thread; the port copies each
-batch from pinned memory with non_blocking, which overlaps the card's
-work by itself).
+Batches reach the device as in the JAX package (`_batches`): with
+config.device_prefetch > 0 a DevicePrefetcher thread keeps that many
+batches in flight, copied on the card through data/segpipe/prefetch.py's
+CardCopier (a ring of pinned host buffers, a side stream, the consuming
+stream waiting on each copy's event); with 0 each batch is copied in the
+loop, synchronously. Either way the steps see the same batches.
+`epoch_stats` holds each epoch's steps, wall time and the host time the
+loop spent waiting for batches (host clock).
+
+Switches of the JAX trainer that the port does not implement raise
+NotImplementedError naming the ROADMAP.md Queue 1 item that brings them:
+is_testing and spatial_partition > 1 when the trainer is built, use_tb,
+use_obs, profile_dir and compile_cache in run(). recompile_guard (the JAX
+package's guard against a retrace of its compiled steps; the port's steps
+are not traced) is accepted and changes nothing.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import time
 from typing import Mapping, Optional
@@ -56,9 +60,12 @@ import torch
 
 from ..config import refuse_unported
 from ..data import get_loader
+from ..data.segpipe import CardCopier, DevicePrefetcher
 from ..models.registry import get_model, get_teacher_model
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
+from ..utils.misc import (get_logger, log_config, mkdir, save_config,
+                          set_seed)
 from ..utils.torch_import import import_backbone
 from .checkpoint import (AsyncCkptWriter, load_meta, restore_train_ckpt,
                          restore_weights, snapshot_state, write_best_ckpt,
@@ -119,9 +126,14 @@ class SegTrainer:
         self.device = resolve_device(device)
         config.resolve(num_devices=1)
         self.config = config
-        self.logger = logging.getLogger(config.logger_name)
-        pin = self.device.type == 'cuda'
-        self.train_loader, self.val_loader = get_loader(config, pin)
+        self.logger = get_logger(config, main_rank=True)
+        mkdir(config.save_dir)
+        set_seed(config.random_seed)
+        self.train_loader, self.val_loader = get_loader(config)
+        # the card's copies of the batches (None on the CPU)
+        self._copier = (CardCopier(self.device, slots=config.device_prefetch
+                                   + 1)
+                        if self.device.type == 'cuda' else None)
         model = get_model(config, device=self.device).eval()
         if variables is None:
             variables = flax_init_variables(model, config.random_seed)
@@ -151,6 +163,8 @@ class SegTrainer:
         self.best_score = 0.0
         self.epoch_losses = []             # mean loss per trained epoch
         self.epoch_kd_losses = []          # mean KD term per epoch (KD)
+        self.epoch_stats = []              # steps, wall_s, data_wait_s
+        self.val_history = []              # (epoch, mIoU) of run()'s vals
         self.last_cm: Optional[np.ndarray] = None
         self.load_ckpt()
 
@@ -213,9 +227,37 @@ class SegTrainer:
         self._ckpt_writer.submit(lambda: write(path, snap, epoch, score))
 
     # ------------------------------------------------------------------- run
+    def _put(self, batch) -> tuple:
+        """A host batch on its way to the device; on the card this runs on
+        the prefetch thread and returns what `_take` finishes."""
+        return batch if self._copier is None else self._copier(batch)
+
+    def _take(self, item) -> tuple:
+        return item if self._copier is None else self._copier.ready(item)
+
+    def _batches(self, loader):
+        """The loader's batches on the device, in order: through the
+        prefetch thread (config.device_prefetch deep) or copied one by one
+        in the loop when it is 0."""
+        if self.config.device_prefetch <= 0:
+            for batch in loader:
+                yield tuple(t.to(self.device) for t in batch)
+            return
+        prefetcher = DevicePrefetcher(loader, self._put,
+                                      depth=self.config.device_prefetch)
+        try:
+            for item in prefetcher:
+                yield self._take(item)
+        finally:
+            # stops the thread and, through it, the loader's producer and
+            # its workers, also when a step raises
+            prefetcher.close()
+
     def run(self) -> float:
         cfg = self.config
         refuse_unported(cfg, _NOT_PORTED)
+        save_config(cfg)
+        log_config(cfg, self.logger)
         start = time.perf_counter()
         try:
             for epoch in range(self.cur_epoch, cfg.total_epoch):
@@ -224,6 +266,7 @@ class SegTrainer:
                 if (epoch >= cfg.begin_val_epoch
                         and (epoch + 1) % cfg.val_interval == 0):
                     score = self.validate()
+                    self.val_history.append((epoch + 1, score))
                     if score > self.best_score:
                         self.best_score = score
                         self.save_ckpt(best=True)
@@ -246,11 +289,18 @@ class SegTrainer:
         self.train_loader.set_epoch(self.cur_epoch)
         nb = len(self.train_loader)
         loss_sum, kd_sum, n_steps, lag = None, None, 0, None
-        t_log = time.perf_counter()
+        t_start = t_log = time.perf_counter()
+        wait = 0.0
+        batches = self._batches(self.train_loader)
         try:
-            for i, batch in enumerate(self.train_loader):
+            while True:
+                t0 = time.perf_counter()
                 # images, masks and, from a raw-tail loader, flip flags
-                batch = [t.to(self.device, non_blocking=True) for t in batch]
+                batch = next(batches, None)
+                wait += time.perf_counter() - t0
+                if batch is None:
+                    break
+                i = n_steps
                 self.state, metrics = self.train_step(self.state, *batch)
                 loss = metrics['loss']
                 loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -266,15 +316,20 @@ class SegTrainer:
                     self.logger.info(
                         f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
                         f'Iter:{li + 1}/{nb} | Loss:{ll.value():.4g} | '
-                        f'{ips:.1f} imgs/s (host clock)')
+                        f'{ips:.1f} imgs/s | data-wait '
+                        f'{wait / (now - t_start):.0%} (host clock)')
                     lag = (i, _HostScalar(loss))
         finally:
+            batches.close()
             self.model.eval()
         if loss_sum is None:
             raise RuntimeError(
                 'Training loader yielded no batches; the dataset is smaller '
                 'than the batch size.')
         self.epoch_losses.append(float(loss_sum) / n_steps)
+        # the read of the loss waited for the epoch's last step
+        self.epoch_stats.append({'steps': n_steps, 'data_wait_s': wait,
+                                 'wall_s': time.perf_counter() - t_start})
         kd_text = ''
         if kd_sum is not None:
             self.epoch_kd_losses.append(float(kd_sum) / n_steps)
@@ -290,7 +345,7 @@ class SegTrainer:
         cfg = self.config
         cm_host = np.zeros((cfg.num_class, cfg.num_class), np.int64)
         cm_dev, dev_pixels = None, 0
-        for imgs, msks in self.val_loader:
+        for imgs, msks in self._batches(self.val_loader):
             n = msks.numel()
             if n >= _INT32_MAX:
                 # one batch past int32 would overflow inside the int32
@@ -302,8 +357,6 @@ class SegTrainer:
             if cm_dev is not None and dev_pixels + n >= _INT32_MAX:
                 cm_host += cm_dev.cpu().numpy().astype(np.int64)
                 cm_dev, dev_pixels = None, 0
-            imgs = imgs.to(self.device, non_blocking=True)
-            msks = msks.to(self.device, non_blocking=True)
             part = self.eval_step(imgs, msks)
             cm_dev = part if cm_dev is None else cm_dev + part
             dev_pixels += n

@@ -266,15 +266,22 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     from rtseg_tpu_torch.data import get_loader
     from rtseg_tpu_torch.train import trainer as tr
     from rtseg_tpu_torch.train.checkpoint import restore_weights
+    from rtseg_tpu_torch.data.custom import Custom
+    from torch_data_trees import custom_tree
     (tmp_path / 'orbax').mkdir()
     (tmp_path / 'orbax' / 'meta.json').write_text('{}')
+    # a Custom set with JPEGs in both splits: the port has no JPEG decoder
+    jpeg_tree = custom_tree(tmp_path / 'custom', n_train=1, n_val=1)
+    for split in ('train', 'val'):
+        (tmp_path / 'custom' / split / 'imgs' / '1.jpg').write_bytes(
+            b'\xff\xd8\xff\xe0')
     messages = [
         _message(lambda: restore_weights(str(tmp_path / 'orbax'),
                                          torch.nn.Linear(1, 1))),
-        _message(lambda: get_loader(SegConfig(dataset='synthetic',
-                                              segpipe_cache=True))),
-        _message(lambda: get_loader(SegConfig(dataset='synthetic',
-                                              aug_workers=2))),
+        _message(lambda: get_loader(SegConfig(dataset='custom',
+                                              data_root=jpeg_tree))),
+        _message(lambda: Custom(SegConfig(dataset='custom',
+                                          data_root=jpeg_tree), 'val')),
     ]
     for flag, value in (('is_testing', True), ('spatial_partition', 2)):
         messages.append(_message(lambda: SegTrainer(

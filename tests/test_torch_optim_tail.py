@@ -29,6 +29,7 @@ writer, and the switches the port refuses or accepts.
   device_prefetch are accepted and change no result.
 """
 
+import re
 import threading
 import time
 
@@ -50,6 +51,7 @@ from rtseg_tpu_torch.train.checkpoint import (AsyncCkptWriter, load_meta,
                                               save_train_ckpt)
 from rtseg_tpu_torch.utils.convert import to_jax_variables
 from test_torch_resnet_train import PORT_ONLY, assert_trees_close
+from torch_data_trees import custom_tree
 from test_torch_smp_train_steps import check_smp_steps
 
 
@@ -292,19 +294,34 @@ def test_run_writes_through_the_writer_and_joins_it(tmp_path, monkeypatch):
 
 # --------------------------------------------------------------------- F3
 
-@pytest.mark.parametrize('flag,value,item', [
-    ('is_testing', True, 'Serving engine and predict'),
-    ('spatial_partition', 2, 'Data parallel'),
-    ('segpipe_cache', True, 'Trainer, checkpoint and data'),
-    ('aug_workers', 2, 'Trainer, checkpoint and data')])
-def test_switches_not_ported_raise(tmp_path, flag, value, item):
-    cfg = _tiny(tmp_path, **{flag: value})
+def _refused_config(tmp_path, case):
+    """A config the port refuses: a switch set, or a Custom PNG set with
+    one JPEG in the split named ('<split> <extension>')."""
+    if case in ('is_testing', 'spatial_partition'):
+        return _tiny(tmp_path, **{case: {'is_testing': True,
+                                         'spatial_partition': 2}[case]})
+    split, ext = case.split()
+    root = custom_tree(tmp_path / 'custom', n_train=2, n_val=2)
+    (tmp_path / 'custom' / split / 'imgs' / f'9{ext}').write_bytes(
+        b'\xff\xd8\xff\xe0')
+    return _tiny(tmp_path, dataset='custom', data_root=root, num_class=3)
+
+
+@pytest.mark.parametrize('case,item', [
+    ('is_testing', 'Serving engine and predict'),
+    ('spatial_partition', 'Data parallel'),
+    ('train .jpg', 'Trainer, checkpoint and data'),
+    ('val .JPEG', 'Trainer, checkpoint and data')])
+def test_switches_not_ported_raise(tmp_path, case, item):
+    cfg = _refused_config(tmp_path, case)
+    what = (f'{case}=' if ' ' not in case
+            else re.escape(f'9{case.split()[1]}'))
     with pytest.raises(NotImplementedError,
-                       match=f'{flag}=.*ROADMAP.md Queue 1, "{item}"'):
+                       match=f'{what}.*ROADMAP.md Queue 1, "{item}"'):
         SegTrainer(cfg, device='cpu')
-    if flag in ('segpipe_cache', 'aug_workers'):
-        with pytest.raises(NotImplementedError, match=flag):
-            get_loader(_tiny(tmp_path, **{flag: value}))
+    if ' ' in case:
+        with pytest.raises(NotImplementedError, match='JPEG'):
+            get_loader(cfg)
 
 
 def test_device_norm_resolves_as_jax():

@@ -178,9 +178,9 @@ def test_val_loader_matches_jax_loader():
     from rtseg_tpu.config import SegConfig as JaxSegConfig
     from rtseg_tpu.data.loader import ShardedLoader
     from rtseg_tpu.data.synthetic import Synthetic as JaxSynthetic
-    from rtseg_tpu_torch.data.loader import get_val_loader
+    from rtseg_tpu_torch.data import get_loader
     cfg = _config(val_bs=5, crop_h=16, crop_w=24)
-    loader = get_val_loader(cfg)
+    loader = get_loader(cfg)[1]
     jcfg = JaxSegConfig(dataset='synthetic', num_class=NC, crop_h=16,
                         crop_w=24, synthetic_len=16)
     jloader = ShardedLoader(JaxSynthetic(jcfg, mode='val'), 5,

@@ -344,11 +344,14 @@ def test_converter_round_trip_and_strictness(bisenet_pair):
 
 def _port_sources():
     files = sorted((ROOT / 'rtseg_tpu_torch').rglob('*.py'))
-    return files + [ROOT / 'chip_smoke.py']
+    return files + [ROOT / 'chip_smoke.py', ROOT / 'main_torch.py']
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    banned = {'jax', 'jaxlib', 'flax', 'orbax', 'optax', 'rtseg_tpu'}
+    """Nor the libraries the machines with a card lack: the port decodes
+    PNGs, resizes and reads data.yaml itself."""
+    banned = {'jax', 'jaxlib', 'flax', 'orbax', 'optax', 'rtseg_tpu',
+              'cv2', 'PIL', 'yaml'}
     files = _port_sources()
     assert len(files) > 15
     offenders = []
