@@ -67,8 +67,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      same dropout and drop-path masks on both, drawn on the CPU), with
      STDC's
      detail_conv (no gradient) moved by weight decay as on the CPU; the
-     train step's time, split and peak memory, and the profile of the
-     models new in this slice (PROFILED); the eval step at 1024x2048, its
+     train step's time, split and peak memory, and MiT-b2 FPN's profile
+     (PROFILED); the eval step at 1024x2048, its
      peak memory (a line of its own for MiT-b2), and K1, K2 timed on each
      model's logits there
   6b. KD (phase_kd): the reference README's pair, a ResNet-101 DeepLabV3+
@@ -132,28 +132,51 @@ Phases (each prints its own lines; any failure exits non-zero):
      mIoU above epoch 2's; then the pools' fork server and resource
      tracker stopped (segpipe.shutdown), and after phase 8 no process this
      script started still running (read from /proc)
-  10. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
-     {"import": ...} and {"main": ...} lines, and the {"kernels": [...]}
-     line, whose launch counts are those of the eval slice (phase 4), the
-     train run (phase 5), the zoo's runs (phase 6), the KD runs (phase
-     6b), the optimizer tail's runs and eval step (phase 6c) and phase 9's
-     runs together, checked exactly against the counts they give: K1 129,
-     K2 161;
-  11. the {"ok": true, ...} line.
+  10. serve (phase_serve): (a) ServeEngine of BiSeNetv2 (19 classes,
+     bf16, Flax init) at buckets 512x1024 and 1024x2048, batch 8: one CUDA
+     graph a bucket, 0 retraces, an unknown bucket raises; each graph's
+     replay bit-equal to the eager forward on the card, a 1-row batch's
+     row bit-equal to the full batch's; replay, eager and int8 readback ms
+     a bucket (CUDA events), run() ms with the host copies, peak memory,
+     the bf16 weight casts' cost; the card in float32 against the port on
+     the CPU at 256x512 (equal wherever the CPU's top-2 logit gap exceeds
+     SERVE_GAP); every registry model and the smp decoders captured and
+     replayed at 128x256 x2 bf16, bit-equal to eager, and a capture after
+     construction raises; (b) tools/torch_segserve.py bench --check
+     --via-http (mixed 512x1024/1024x2048, open-loop Poisson) at doubling
+     rates until --check fails or the search's budget is spent: p50/p95/
+     p99, imgs/s, the highest passing rate; then 72 ?raw=1 requests on 64
+     connections through a server over the (a) engine, each mask equal to
+     engine.run on its image; (c) main_torch.main --is_testing on 6 PNGs
+     at 1024x2048, 720x1280 and 512x1024 from a best.ckpt of the port:
+     every mask file equal to the engine's mask, every blend at its
+     image's size, the wall and peak memory; K1 and K2 launch counts
+     unchanged by the phase (the serving path launches neither)
+  11. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
+     {"import": ...}, {"main": ...} and {"serve": ...} lines, and the
+     {"kernels": [...]} line, whose launch counts are those of the eval
+     slice (phase 4), the train run (phase 5), the zoo's runs (phase 6),
+     the KD runs (phase 6b), the optimizer tail's runs and eval step
+     (phase 6c) and phase 9's runs together, checked exactly against the
+     counts they give: K1 129, K2 161 (phase 10 adds none);
+  12. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import atexit
 import copy
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -648,6 +671,19 @@ def phase_slice(dev):
 
 
 # ------------------------------------------------------------------ phase 5
+_UNUSED = []
+
+
+def _unused_dir() -> str:
+    """The save_dir of trainers whose files nothing reads: one temporary
+    directory, removed at exit, so that no run writes into the directory
+    it was started from."""
+    if not _UNUSED:
+        _UNUSED.append(tempfile.mkdtemp(prefix='chip_smoke_unused_'))
+        atexit.register(shutil.rmtree, _UNUSED[0], True)
+    return _UNUSED[0]
+
+
 def _train_config(save_dir, **kw):
     from rtseg_tpu_torch.config import SegConfig
     base = dict(model='bisenetv2', use_aux=True, num_class=C,
@@ -713,7 +749,7 @@ def _card_vs_cpu_runs(variables, devices, build=None, **kw):
         registry = trainer_mod.get_model
         trainer_mod.get_model = build or registry
         try:
-            t = SegTrainer(_train_config('unused', **{**small, **kw}),
+            t = SegTrainer(_train_config(_unused_dir(), **{**small, **kw}),
                            device=dev, variables=variables)
         finally:
             trainer_mod.get_model = registry
@@ -793,10 +829,11 @@ def _profile_step(step, state, imgs, msks, n: int = 2, label='train'):
             'top': [[k, t, c] for t, c, k in ops[:12]]}
 
 
-def _step_times(trainer, cfg, imgs, msks):
-    """The train step on a resident batch: its ms, the split (forward+loss,
-    backward, optimizer+EMA; one event each, after a synchronise), the
-    peak memory of a step and the memory allocated before it."""
+def _step_times(trainer, cfg, imgs, msks, iters: int = 5, warmup: int = 2):
+    """The train step on a resident batch: its ms (mean of `iters` after
+    `warmup`), the split (forward+loss, backward, optimizer+EMA; one event
+    each, after a synchronise; mean of `iters` after `warmup`), the peak
+    memory of a step and the memory allocated before it."""
     from rtseg_tpu_torch.nn import DropoutMasks, bind_dropout
     from rtseg_tpu_torch.train.optim import set_hparams
     from rtseg_tpu_torch.train.state import ema_update
@@ -804,16 +841,17 @@ def _step_times(trainer, cfg, imgs, msks):
     st, step = trainer.state, trainer.train_step
     masks = DropoutMasks(torch.Generator(device=imgs.device).manual_seed(0))
     forward_loss = _make_forward_loss(cfg, trainer.teacher)
-    step_ms = time_ms(lambda: step(st, imgs, msks), iters=5, warmup=2)
+    for _ in range(warmup):
+        step(st, imgs, msks)
+    torch.cuda.synchronize()
+    # every timed step peaks alike: the peak of one step
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    step(st, imgs, msks)
-    torch.cuda.synchronize()
+    step_ms = time_ms(lambda: step(st, imgs, msks), iters=iters, warmup=0)
     peak = torch.cuda.max_memory_allocated()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     parts = np.zeros(3)
-    iters = 5
-    for i in range(iters + 2):
+    for i in range(iters + warmup):
         st.model.train()
         set_hparams(st.optimizer, 1e-3, 0.9)
         st.optimizer.zero_grad(set_to_none=True)
@@ -827,7 +865,7 @@ def _step_times(trainer, cfg, imgs, msks):
         ema_update(st.model, st.ema_model, 0.5)
         ev[3].record()
         torch.cuda.synchronize()
-        if i >= 2:
+        if i >= warmup:
             parts += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
     st.model.eval()
     return step_ms, parts / iters, peak, before
@@ -1079,10 +1117,17 @@ ZOO_SMALL_RUN = {'mininetv2': (dict(feat_dt=(1, 2)), 1),
 ZOO_FLAX_INIT = ('dfanet',)
 
 
-# the zoo models whose train step torch.profiler reads: those new in this
-# slice (the earlier ones' profiles are in PERF.md from their slices; the
-# pass is dropped for them to keep the script near its time)
-PROFILED = tuple(name for name, kw, _, _ in ZOO if kw['model'] == 'smp')
+# the zoo model whose train step torch.profiler reads: MiT-b2 FPN, the
+# host-bound step ROADMAP.md's S2 and S3 name (the other models' profiles
+# are in PERF.md from their slices; the pass is dropped for them to keep
+# the script within its time limit)
+PROFILED = ('smp FPN MiT-b2',)
+
+
+# the timed train and eval steps a zoo model, each after one warm-up
+# step (the flagship's phases time 5 after 2): the zoo's depth, cut so
+# that the script keeps within its time limit
+ZOO_TIMED = 3
 
 
 def zoo_key(kw) -> str:
@@ -1329,14 +1374,19 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         check(all(math.isfinite(float(v)) for v in metrics.values())
               and ('loss_detail' in metrics) == bool(cfg.use_detail_head),
               f'{name} train step metrics {metrics}')
-        step_ms, parts, peak, before = _step_times(trainer, cfg, imgs, msks)
+        step_ms, parts, peak, before = _step_times(
+            trainer, cfg, imgs, msks, iters=ZOO_TIMED, warmup=1)
         profile = _profile_step(trainer.train_step, trainer.state, imgs,
                                 msks, label=f'zoo {name} train') \
             if name in PROFILED else None
         # the eval step at 1024x2048 and K1, K2 on the model's logits there
         step = build_eval_step(cfg, trainer.ema_model, dev)
-        eval_ms = time_ms(lambda: step(eval_imgs, eval_msks), iters=5)
-        eval_peak = _eval_peak(step, eval_imgs, eval_msks)
+        step(eval_imgs, eval_msks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eval_ms = time_ms(lambda: step(eval_imgs, eval_msks),
+                          iters=ZOO_TIMED, warmup=0)
+        eval_peak = torch.cuda.max_memory_allocated()
         if kw.get('encoder', '').startswith('mit_'):
             say(f'zoo {name} eval peak memory at {H}x{W} bs{B} ({card}): '
                 f'{eval_peak / 2**30:.3f} GiB (attention in query slices of '
@@ -1425,9 +1475,9 @@ def kd_small_variables(seed: int = 1):
     from rtseg_tpu_torch.models import get_model
     from rtseg_tpu_torch.utils.convert import random_jax_variables
     return (random_jax_variables(get_model(_train_config(
-                'unused', **KD_STUDENT)), seed=seed),
+                _unused_dir(), **KD_STUDENT)), seed=seed),
             random_jax_variables(get_model(_train_config(
-                'unused', **KD_TEACHER)), seed=seed + 1))
+                _unused_dir(), **KD_TEACHER)), seed=seed + 1))
 
 
 def _kd_card_vs_cpu(tmp: str):
@@ -1736,10 +1786,10 @@ def _remat_pair(name, kw, dev):
     cfg_kw = dict(synthetic_len=B, total_epoch=1, optimizer_type='adam',
                   save_ckpt=False, load_ckpt=False, **kw)
     variables = flax_init_variables(get_model(_train_config(
-        'unused', **cfg_kw), device=dev), seed=1)
+        _unused_dir(), **cfg_kw), device=dev), seed=1)
     pair, draws, out = [], [], {}
     for remat in (False, True):
-        t = SegTrainer(_train_config('unused', remat=remat, **cfg_kw),
+        t = SegTrainer(_train_config(_unused_dir(), remat=remat, **cfg_kw),
                        variables=variables)
         count = [0]
         gen = torch.Generator(device=dev)
@@ -1931,7 +1981,7 @@ def phase_optim(dev, card, eval_imgs, eval_msks):
     flip_ms = time_ms(lambda: device_flip_norm(u8_d, labels_d, flags_d,
                                                *NORM_COEFFS), iters=10)
     del x, m
-    pair = [SegTrainer(_train_config('unused', synthetic_len=B,
+    pair = [SegTrainer(_train_config(_unused_dir(), synthetic_len=B,
                                      total_epoch=1, save_ckpt=False,
                                      load_ckpt=False, **OPTIM_FLAGSHIP))
             for _ in range(2)]
@@ -1979,7 +2029,7 @@ def phase_optim(dev, card, eval_imgs, eval_msks):
     out['card_vs_cpu'] = {}
     for name, kw, samples in OPTIM_CHECKS:
         variables = zoo_small_variables(kw, get_model(_train_config(
-            'unused', **kw)))
+            _unused_dir(), **kw)))
         first, rel, weights = _zoo_card_vs_cpu(name, variables, kw, samples)
         out['card_vs_cpu'][name] = {'first_loss': first, 'loss': rel,
                                     'weights': weights}
@@ -2715,6 +2765,453 @@ def phase_main(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 10
+SERVE_BUCKETS = ((512, 1024), (1024, 2048))   # the flagship's buckets
+SERVE_BATCH = 8
+SERVE_SMALL = (128, 256)                # every model's capture check
+SERVE_SMALL_BATCH = 2
+SERVE_CPU = (256, 512)                  # card against the CPU, float32
+# the card's float32 masks must equal the CPU's at every pixel whose CPU
+# top-2 logit gap exceeds this; below it the two argmaxes may part by
+# rounding alone (cuDNN against the CPU's kernels)
+SERVE_GAP = 1e-3
+SERVE_RATES = (8, 16, 32, 64)           # the bench's doubling search
+SERVE_WINDOW_S = 15.0                   # seconds of arrivals at each rate
+SERVE_P95_MS = 1000.0                   # --check's p95 gate (its default)
+SERVE_SEARCH_S = 120.0                  # the search's budget
+PREDICT_SHAPES = ((1024, 2048), (720, 1280), (512, 1024))
+
+
+def _serve_config(**kw):
+    from rtseg_tpu_torch.config import SegConfig
+    cfg = SegConfig(**{'dataset': 'synthetic', 'model': 'bisenetv2',
+                       'num_class': C, 'use_aux': False,
+                       'compute_dtype': 'bfloat16', 'use_tb': False,
+                       'use_obs': False, **kw})
+    cfg.resolve(num_devices=1)
+    return cfg
+
+
+def _blocky(rng, hw, cell: int = 8) -> np.ndarray:
+    """A uint8 RGB image of random cell x cell blocks (quick to encode)."""
+    small = rng.integers(0, 256, (hw[0] // cell, hw[1] // cell, 3),
+                         dtype=np.uint8)
+    return np.repeat(np.repeat(small, cell, axis=0), cell, axis=1)
+
+
+def _weight_cast_ms(model) -> tuple:
+    """(casts, ms): a CUDA graph of the float32 -> bf16 casts that the
+    convolutions and dense layers of nn/modules.py make of their
+    parameters in every bf16 forward, replayed alone."""
+    params = [p for m in model.modules()
+              if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                torch.nn.Linear))
+              for p in m.parameters(recurse=False)]
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            [p.to(torch.bfloat16) for p in params]
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            casts = [p.to(torch.bfloat16) for p in params]
+    ms = time_ms(graph.replay)
+    del casts, graph
+    return len(params), ms
+
+
+def _serve_engine_checks(dev, out):
+    """(a) BiSeNetv2 bf16 at its two buckets: graphs, replay against
+    eager, batch fill, times; card against CPU; every model at 128x256."""
+    from rtseg_tpu_torch.export import build_inference_fn
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.serve import (SealedTable, ServeEngine,
+                                       UnknownBucket, assemble_batch)
+    from rtseg_tpu_torch.utils.convert import (flax_init_variables,
+                                               load_jax_variables)
+    cfg = _serve_config()
+    variables = flax_init_variables(get_model(cfg), 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine.from_config(cfg, SERVE_BUCKETS, SERVE_BATCH,
+                                     variables=variables)
+    capture_s = time.perf_counter() - t0
+    stats = engine.stats()
+    check(engine.device.type == 'cuda', f'engine on {engine.device}')
+    check(stats['cuda_graphs'] == stats['executables'] == 2
+          and stats['retraces'] == 0, f'engine table {stats}')
+    try:
+        engine.dispatch((256, 512), np.zeros((SERVE_BATCH, 256, 512, 3),
+                                             np.float32))
+        check(False, 'an unknown bucket did not raise')
+    except UnknownBucket:
+        pass
+    rng = np.random.default_rng(10)
+    rows = {}
+    for bucket in SERVE_BUCKETS:
+        tag = f'{bucket[0]}x{bucket[1]}'
+        imgs = rng.standard_normal((SERVE_BATCH,) + bucket + (3,)
+                                   ).astype(np.float32)
+        got = engine.run(bucket, imgs)
+        eager = engine.fn(torch.from_numpy(imgs).to(dev)).cpu().numpy()
+        check(got.dtype == np.int8 and got.shape == imgs.shape[:3],
+              f'engine {tag}: {got.shape} {got.dtype}')
+        check(np.array_equal(got, eager),
+              f'engine {tag}: graph replay differs from the eager forward '
+              f'at {int((got != eager).sum())} px')
+        one = engine.run(bucket, assemble_batch([imgs[0]], bucket,
+                                                SERVE_BATCH))
+        check(np.array_equal(one[0], got[0]),
+              f'engine {tag}: a 1-row batch differs from the full batch')
+        entry = engine.graph(bucket)
+        replay = time_ms(entry.graph.replay)
+        with torch.no_grad():
+            eager_ms = time_ms(lambda: engine.fn(entry.static_in), iters=10)
+        readback = time_ms(lambda: entry.outputs[0].tensor.copy_(
+            entry.static_out, non_blocking=True))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engine.run(bucket, imgs)
+        run_ms = (time.perf_counter() - t0) / 5 * 1e3
+        rows[tag] = {'replay_ms': replay, 'eager_ms': eager_ms,
+                     'readback_ms': readback, 'run_ms': run_ms,
+                     'classes': int(len(np.unique(got)))}
+        say(f'serve (a) BiSeNetv2 bf16 {tag} x{SERVE_BATCH}: replay '
+            f'{replay:.3f} ms, eager {eager_ms:.3f} ms, int8 readback '
+            f'{readback:.3f} ms, run() with the host copies {run_ms:.1f} '
+            f'ms ({SERVE_BATCH * 1e3 / run_ms:.1f} imgs/s); replay equal to '
+            f'eager, 1-row batch equal to the full batch, '
+            f'{rows[tag]["classes"]} classes')
+    model = get_model(cfg, device=dev).eval()
+    load_jax_variables(model, variables)
+    casts, cast_ms = _weight_cast_ms(model)
+    out['engine'] = {'buckets': rows, 'capture_s': capture_s,
+                     'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                     'weight_casts': casts, 'weight_cast_ms': cast_ms}
+    say(f'serve (a) two graphs captured in {capture_s:.2f} s, peak '
+        f'{out["engine"]["peak_gib"]:.3f} GiB; the {casts} bf16 weight casts '
+        f'a forward replay alone in {cast_ms:.4f} ms')
+    del model
+
+    # the card (float32, TF32 off) against the port on the CPU
+    cfg32 = _serve_config(compute_dtype='float32')
+    imgs = rng.standard_normal((SERVE_SMALL_BATCH,) + SERVE_CPU + (3,)
+                               ).astype(np.float32)
+    card = ServeEngine.from_config(cfg32, [SERVE_CPU], SERVE_SMALL_BATCH,
+                                   variables=variables)
+    got = card.run(SERVE_CPU, imgs)
+    cpu_model = get_model(cfg32).eval()
+    load_jax_variables(cpu_model, variables)
+    logits = build_inference_fn(cpu_model, 'float32', argmax=False)(
+        torch.from_numpy(imgs)).numpy()
+    want = logits.argmax(-1)
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    decided = gap > SERVE_GAP
+    bad = int((got[decided] != want[decided]).sum())
+    loose = int((got[gap > 1e-4] != want[gap > 1e-4]).sum())
+    out['card_vs_cpu'] = {'decided': float(decided.mean()), 'mismatch': bad,
+                          'mismatch_gap_1e-4': loose}
+    say(f'serve (a) card float32 against the CPU at {SERVE_CPU}: {bad} '
+        f'mismatches over the {decided.mean():.4%} of pixels whose CPU top-2 '
+        f'gap exceeds {SERVE_GAP:g} (above 1e-4: {loose}, not checked)')
+    check(bad == 0, f'card masks differ from the CPU\'s at {bad} decided px')
+    del card, cpu_model
+
+    # every registry model and the smp decoders: capture, replay, eager
+    zoo = {}
+    models = [('BiSeNetv2', dict(model='bisenetv2'))] + [
+        (name, kw) for name, kw, _, _ in ZOO]
+    x = rng.standard_normal((SERVE_SMALL_BATCH,) + SERVE_SMALL + (3,)
+                            ).astype(np.float32)
+    for i, (name, kw) in enumerate(models):
+        zcfg = _serve_config(**dict(kw, use_aux=False,
+                                    use_detail_head=False))
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_config(zcfg, [SERVE_SMALL],
+                                      SERVE_SMALL_BATCH)
+        cap = time.perf_counter() - t0
+        got = eng.run(SERVE_SMALL, x)
+        eager = eng.fn(torch.from_numpy(x).to(dev)).cpu().numpy()
+        check(np.array_equal(got, eager),
+              f'{name}: graph replay differs from eager at '
+              f'{int((got != eager).sum())} px')
+        if i == 0:
+            try:
+                eng.capture((64, 128))
+                check(False, 'a capture after construction did not raise')
+            except SealedTable:
+                check(eng.stats()['retraces'] == 1,
+                      f'sealed table: {eng.stats()}')
+        zoo[name] = {'capture_s': cap,
+                     'replay_ms': time_ms(eng.graph(SERVE_SMALL).graph.replay,
+                                          iters=5, warmup=1)}
+        del eng
+    torch.cuda.empty_cache()
+    out['zoo'] = zoo
+    say(f'serve (a) {len(zoo)} models captured and replayed at '
+        f'{SERVE_SMALL} x{SERVE_SMALL_BATCH} bf16, each bit-equal to eager '
+        f'(capture {min(v["capture_s"] for v in zoo.values()):.2f}-'
+        f'{max(v["capture_s"] for v in zoo.values()):.2f} s); a capture '
+        f'after construction raises and counts a retrace')
+    return engine
+
+
+def _load_tool(name: str):
+    import importlib.util
+    path = Path(__file__).resolve().parent / 'tools' / f'{name}.py'
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _serve_http_checks(engine, out, tmp):
+    """(b) tools/torch_segserve.py bench --check --via-http at doubling
+    rates, SERVE_WINDOW_S of arrivals each, up to the first rate that is
+    not sustained; then ?raw=1 masks under a full pipeline against
+    engine.run."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.obs import MetricsRegistry
+    from rtseg_tpu_torch.serve import (ServePipeline, assemble_batch,
+                                       make_preprocess, make_server)
+    from rtseg_tpu_torch.utils import get_colormap
+    from rtseg_tpu_torch.serve.loadgen import _open_loop_schedule
+    tool = _load_tool('torch_segserve')
+    buckets = ','.join(f'{h}x{w}' for h, w in SERVE_BUCKETS)
+    passed, runs, t_search = None, [], time.perf_counter()
+    for rate in SERVE_RATES:
+        if time.perf_counter() - t_search > SERVE_SEARCH_S:
+            break
+        report_path = os.path.join(tmp, f'bench_{rate}.json')
+        requests = int(rate * SERVE_WINDOW_S)
+        # the bench's own arrival schedule (seed 0): when the last
+        # request arrived
+        span = float(_open_loop_schedule(requests, rate, 0)[-1])
+        rc = tool.main(['bench', '--model', 'bisenetv2', '--num_class',
+                        str(C), '--buckets', buckets, '--batch',
+                        str(SERVE_BATCH), '--requests', str(requests),
+                        '--rps', str(rate), '--workers', '4', '--check',
+                        '--p95-ms', str(SERVE_P95_MS), '--via-http',
+                        '--report-json', report_path])
+        with open(report_path) as f:
+            rep = json.load(f)
+        # a rate is sustained when the gate passes and the last answer
+        # came within the gate's p95 of the last arrival: the server was
+        # less than that behind when the window closed. The gate alone
+        # passes a rate above capacity whose window ends before its
+        # backlog has built up; with 15 s of arrivals this asks for
+        # images/s of at least 15/16 of the offered rate.
+        drain_s = rep['wall_s'] - span
+        row = {'rps': rate, 'requests': requests, 'rc': rc,
+               'arrivals_s': span, 'offered_rps': requests / span,
+               'drain_s': drain_s,
+               'sustained': rc == 0 and drain_s <= SERVE_P95_MS / 1e3,
+               'p50_ms': rep['e2e_p50_ms'], 'p95_ms': rep['e2e_p95_ms'],
+               'p99_ms': rep['e2e_p99_ms'],
+               'imgs_s': rep['rps_achieved'], 'stage_mean_ms':
+               rep['stage_mean_ms'], 'retraces': rep['engine']['retraces'],
+               'graphs': rep['engine']['cuda_graphs'],
+               'batches': rep['batcher']['batches'],
+               'dropped': rep['dropped'], 'rejected': rep['rejected'],
+               'errors': rep['errors']}
+        runs.append(row)
+        torch.cuda.empty_cache()
+        if not row['sustained']:
+            break
+        passed = row
+    check(runs and runs[0]['sustained'], f'bench --check not sustained at '
+          f'the first rate: {runs[:1]}')
+    check(all(r['graphs'] == 2 and r['retraces'] == 0 for r in runs),
+          f'bench graphs and retraces: {runs}')
+    out['bench'] = {'window_s': SERVE_WINDOW_S, 'runs': runs,
+                    'highest_sustained_rps': passed['rps']}
+    for r in runs:
+        say(f'serve (b) bench --check --via-http at {r["rps"]} rps, '
+            f'{r["requests"]} requests arriving over {r["arrivals_s"]:.2f} '
+            f's ({r["offered_rps"]:.2f} rps offered): rc {r["rc"]}, '
+            f'p50/p95/p99 {r["p50_ms"]:.1f}/{r["p95_ms"]:.1f}/'
+            f'{r["p99_ms"]:.1f} ms, {r["imgs_s"]} imgs/s, last answer '
+            f'{r["drain_s"]:.2f} s after the last arrival, sustained '
+            f'{r["sustained"]}; {r["batches"]} batches; drops '
+            f'{r["dropped"]} rejects {r["rejected"]} errors {r["errors"]} '
+            f'retraces {r["retraces"]}; stage means {r["stage_mean_ms"]}')
+    say(f'serve (b) highest rate sustained (--check passing, the last '
+        f'answer within {SERVE_P95_MS / 1e3:.0f} s of the last arrival): '
+        f'{passed["rps"]} rps over {SERVE_WINDOW_S:.0f} s of arrivals')
+
+    # the preprocess pool: 4 PNG decodes (+ normalize) of the bench's
+    # noise images at the large bucket one after another, then on 4
+    # threads
+    from rtseg_tpu_torch.serve import encode_png, synth_images
+    cfg = _serve_config()
+    prep = make_preprocess(cfg)
+    noise = [encode_png(im) for im in synth_images([SERVE_BUCKETS[1]],
+                                                    per_shape=4)]
+    t0 = time.perf_counter()
+    for body in noise:
+        prep(body)
+    serial = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(prep, noise))
+        threaded = time.perf_counter() - t0
+    out['decode'] = {'serial_ms': serial / 4 * 1e3,
+                     'four_threads_ms': threaded / 4 * 1e3,
+                     'speedup': serial / threaded}
+    bh, bw = SERVE_BUCKETS[1]
+    say(f'serve (b) preprocess of a {bh}x{bw} noise PNG: '
+        f'{serial / 4 * 1e3:.1f} ms alone, {threaded / 4 * 1e3:.1f} ms an '
+        f'image on 4 threads ({serial / threaded:.2f}x)')
+
+    # ?raw=1 with the pipeline kept full, each mask against engine.run
+    rng = np.random.default_rng(20)
+    bodies = [png.encode(_blocky(rng, SERVE_BUCKETS[i % 2]))
+              for i in range(24)]
+    pipe = ServePipeline(engine, max_wait_ms=5.0, max_queue=256,
+                         preprocess=make_preprocess(cfg), pre_workers=4,
+                         post_workers=4, registry=MetricsRegistry())
+    server = make_server(pipe, port=0, colormap=get_colormap(cfg))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f'http://127.0.0.1:{server.server_address[1]}/predict?raw=1'
+
+    def post(i):
+        req = urllib.request.Request(url, data=bodies[i % len(bodies)],
+                                     method='POST')
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            shape = tuple(int(v) for v in
+                          resp.headers['X-Mask-Shape'].split(','))
+            return i % len(bodies), np.frombuffer(
+                resp.read(), np.int8).reshape(shape)
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=64) as pool:
+            answers = list(pool.map(post, range(3 * len(bodies))))
+        wall = time.perf_counter() - t0
+        stats = pipe.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        pipe.close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), 'the raw-check server thread did not stop')
+    want = []
+    for body in bodies:
+        image = prep(body)
+        bucket = engine.select(*image.shape[:2])
+        want.append(engine.run(bucket, assemble_batch(
+            [image], bucket, SERVE_BATCH))[0])
+    bad = [i for i, mask in answers if not np.array_equal(mask, want[i])]
+    check(not bad, f'{len(bad)} raw masks differ from engine.run: {bad[:8]}')
+    check(stats['errors'] == 0 and stats['engine']['retraces'] == 0,
+          f'raw check pipeline stats {stats}')
+    out['raw'] = {'requests': len(answers), 'wall_s': wall,
+                  'batches': stats['batcher']['batches'],
+                  'mean_batch': stats['batcher']['batched_requests']
+                  / stats['batcher']['batches']}
+    say(f'serve (b) {len(answers)} ?raw=1 requests over 64 connections in '
+        f'{wall:.2f} s, {out["raw"]["batches"]} batches (mean '
+        f'{out["raw"]["mean_batch"]:.2f} a batch): every mask equal to '
+        f'engine.run on its image')
+
+
+def _serve_predict_checks(dev, out, tmp):
+    """(c) main_torch --is_testing on 6 PNGs at 3 shapes from a port
+    best.ckpt; masks against the engine, blends at the image's size."""
+    import main_torch
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.export import build_inference_fn
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.serve import ServeEngine, assemble_batch
+    from rtseg_tpu_torch.data.transforms import EvalTransform
+    from rtseg_tpu_torch.train.checkpoint import save_best_ckpt
+    from rtseg_tpu_torch.train.state import TrainState
+    from rtseg_tpu_torch.utils import get_colormap
+    from rtseg_tpu_torch.utils.convert import flax_init_variables, \
+        load_jax_variables
+    cfg = _serve_config()
+    model = get_model(cfg, device=dev).eval()
+    load_jax_variables(model, flax_init_variables(model, 1))
+    ckpt = os.path.join(tmp, 'ckpt', 'best.ckpt')
+    save_best_ckpt(ckpt, TrainState(0, model, None, model), 1, 0.0)
+    folder = os.path.join(tmp, 'imgs')
+    os.makedirs(folder)
+    rng = np.random.default_rng(30)
+    images = {}
+    for i in range(6):
+        hw = PREDICT_SHAPES[i % 3]
+        images[f'img{i}.png'] = _blocky(rng, hw)
+        with open(os.path.join(folder, f'img{i}.png'), 'wb') as f:
+            f.write(png.encode(images[f'img{i}.png']))
+    save = os.path.join(tmp, 'predict')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, score = main_torch.main(
+        ['--is_testing', '--test_data_folder', folder, '--load_ckpt_path',
+         ckpt, '--save_dir', save, '--model', 'bisenetv2', '--num_class',
+         str(C), '--test_bs', '2'])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(score is None and trainer.device.type == 'cuda',
+          f'predict: score {score}, device {trainer.device}')
+    stats = trainer.predict_stats
+    check(stats['cuda_graphs'] == 3 and stats['retraces'] == 0,
+          f'predict engine {stats}')
+    engine = ServeEngine(build_inference_fn(model, cfg.compute_dtype),
+                         PREDICT_SHAPES, 2)
+    cmap = get_colormap(cfg)
+    transform = EvalTransform(trainer.config)
+    for name, raw in images.items():
+        bucket = raw.shape[:2]
+        mask = engine.run(bucket, assemble_batch([transform(raw)], bucket,
+                                                 2))[0]
+        got = png.read(os.path.join(save, 'predicts', name), 'RGB')
+        check(np.array_equal(got, cmap[mask]),
+              f'predict {name}: the mask file differs from the engine\'s')
+        blend = png.read(os.path.join(save, 'predicts_blend', name), 'RGB')
+        check(blend.shape == raw.shape, f'predict {name}: blend '
+              f'{blend.shape} for an image of {raw.shape}')
+    out['predict'] = {'images': len(images), 'shapes': len(PREDICT_SHAPES),
+                      'wall_s': wall, 'peak_gib': peak,
+                      'batches': sum(stats['calls'].values())}
+    say(f'serve (c) main_torch --is_testing: {len(images)} PNGs at '
+        f'{len(PREDICT_SHAPES)} shapes in {wall:.2f} s (process start '
+        f'excluded; 3 CUDA graphs at batch 2, one memory pool), peak '
+        f'{peak:.3f} GiB; each mask file equal to the engine\'s mask, each '
+        f'blend at its image\'s size')
+
+
+def phase_serve(dev):
+    """Phase 10: the serving engine, the pipeline and HTTP server through
+    tools/torch_segserve.py, and prediction through main_torch.py. The
+    serving path launches neither kernel: their counts must not move."""
+    from rtseg_tpu_torch.ops.fused_head import resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
+    before = (resize_argmax.launches, confusion_matrix_pallas.launches)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_serve_')
+    try:
+        engine = _serve_engine_checks(dev, out)
+        _serve_http_checks(engine, out, tmp)
+        del engine
+        torch.cuda.empty_cache()
+        _serve_predict_checks(dev, out, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    after = (resize_argmax.launches, confusion_matrix_pallas.launches)
+    check(after == before, f'the serving phase launched K1/K2: {before} -> '
+          f'{after}')
+    say('serve: K1 and K2 launch counts unchanged by the phase')
+    return out
+
+
 def _descendants() -> list:
     """(pid, command) of every live process this one started, directly or
     not, read from /proc."""
@@ -2774,6 +3271,8 @@ def main() -> int:
     elapsed('7 (import)')
     main_launches, main_run = phase_main(dev, card)
     elapsed('9 (main)')
+    serve = phase_serve(dev)
+    elapsed('10 (serve)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
                 + optim_launches[k] + main_launches[k]
                 for k, v in launches.items()}
@@ -2799,6 +3298,7 @@ def main() -> int:
     say(json.dumps({'optim': optim}))
     say(json.dumps({'import': imports}))
     say(json.dumps({'main': main_run}))
+    say(json.dumps({'serve': serve}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

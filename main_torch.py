@@ -1,8 +1,11 @@
 """Entry point of the PyTorch/CUDA port (counterpart of main.py): build the
-config, overlay the command line, resolve, construct SegTrainer, run.
+config, overlay the command line, resolve, construct SegTrainer, then
+predict (--is_testing) or train.
 
     python main_torch.py --dataset cityscapes --data_root data/cityscapes \\
         --model bisenetv2 --use_aux --total_epoch 2
+    python main_torch.py --is_testing --test_data_folder imgs/ \\
+        --load_ckpt_path save/best.ckpt --save_dir save
     python main_torch.py --device cpu ...      # the CPU, named explicitly
 
 It runs on the CUDA card. `--device cpu` is the only other choice; this
@@ -12,7 +15,9 @@ card and without `--device cpu` SegTrainer raises. `main(argv, config)`
 is the same from Python: `config` replaces main.py's default config, as
 examples/ build theirs, and carries fields the parser has no flag for
 (synthetic_len, segpipe_cache, aug_workers, device_prefetch,
-device_norm). Prediction (`--is_testing`) is not ported yet and raises.
+device_norm). With `--is_testing` it writes the folder's colormapped
+masks and blends under save_dir/predicts and save_dir/predicts_blend
+(SegTrainer.predict) and returns (trainer, None).
 """
 
 from __future__ import annotations
@@ -42,13 +47,17 @@ def split_device(argv: Sequence[str]):
 
 def main(argv: Optional[Sequence[str]] = None,
          config: Optional[SegConfig] = None):
-    """Train as main.py does; returns (trainer, the final val_best mIoU)."""
+    """Run as main.py does; returns (trainer, the final val_best mIoU),
+    or (trainer, None) after predicting under config.is_testing."""
     device, rest = split_device(sys.argv[1:] if argv is None else argv)
     config = default_config() if config is None else config
     if rest:
         config = load_parser(config, rest)
     config.resolve()
     trainer = SegTrainer(config, device=device)
+    if config.is_testing:
+        trainer.predict()
+        return trainer, None
     return trainer, trainer.run()
 
 

@@ -406,6 +406,13 @@ class SegConfig:
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a feature of the JAX package that the port does not
+    have yet, naming the ROADMAP.md Queue 1 item that brings it."""
+    return NotImplementedError(f'{what} is not ported to PyTorch yet (see '
+                               f'ROADMAP.md Queue 1, "{item}")')
+
+
 def refuse_unported(config, switches) -> None:
     """The port's rule for a switch of the JAX package that it does not
     implement yet: it raises, never is ignored. `switches` holds (flag,

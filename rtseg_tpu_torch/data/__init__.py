@@ -1,6 +1,5 @@
-"""Dataset hub and loader factory (counterpart of
-rtseg_tpu/data/__init__.py). The test-folder reader of prediction is not
-ported yet (ROADMAP.md Queue 1, "Serving engine and predict")."""
+"""Dataset hub and loader factories (counterpart of
+rtseg_tpu/data/__init__.py)."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ from .cityscapes import Cityscapes
 from .custom import Custom
 from .loader import ShardedLoader
 from .synthetic import Synthetic
+from .test_folder import TestFolder
 
 dataset_hub = {
     'cityscapes': Cityscapes,
@@ -90,5 +90,13 @@ def get_loader(config):
     return train_loader, val_loader
 
 
-__all__ = ['Cityscapes', 'Custom', 'Synthetic', 'ShardedLoader',
-           'dataset_hub', 'get_dataset', 'get_loader']
+def get_test_loader(config):
+    """The test folder of prediction (reference datasets/__init__.py:52-65)
+    itself: prediction reads it image by image at each image's size."""
+    ds = TestFolder(config)
+    config.test_num = len(ds)
+    return ds
+
+
+__all__ = ['Cityscapes', 'Custom', 'Synthetic', 'TestFolder', 'ShardedLoader',
+           'dataset_hub', 'get_dataset', 'get_loader', 'get_test_loader']

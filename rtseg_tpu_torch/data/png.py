@@ -15,7 +15,9 @@ is built; `unfilter_numpy` is the reference it is held to, a per-pixel
 loop for the Average and Paeth filters (seconds at 1024x2048).
 
 `encode(array)` writes gray or RGB 8-bit PNGs, cycling the filter types
-row by row when asked, for the tests and chip_smoke.py's Cityscapes tree.
+row by row when asked: prediction's masks and blends, the server's
+responses, the tests' and chip_smoke.py's trees. `read_size(path)` reads
+the IHDR alone; `require_png` refuses other formats.
 """
 
 from __future__ import annotations
@@ -31,6 +33,30 @@ from .. import native
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def require_png(head: bytes, what: str) -> None:
+    """Raise NotImplementedError unless `head` (a file's first bytes)
+    opens with the PNG signature: the port decodes no other format."""
+    if head[:8] != SIGNATURE:
+        raise NotImplementedError(
+            f'{what} is not a PNG: images other than PNG (a JPEG decoder) '
+            f'are not ported to PyTorch yet; convert them to PNG (see '
+            f'ROADMAP.md Queue 1, "Trainer, checkpoint and data")')
+
+
+def read_size(path: str):
+    """(height, width) of a PNG from its IHDR chunk alone (the first 33
+    bytes), without decoding it; a file that is not a PNG raises
+    NotImplementedError."""
+    with open(path, 'rb') as f:
+        head = f.read(33)
+    require_png(head, path)
+    kind, body = next(_chunks(head))
+    if kind != b'IHDR':
+        raise ValueError(f'{path}: the first PNG chunk is {kind!r}, not IHDR')
+    w, h = struct.unpack('>II', body[:8])
+    return h, w
 
 
 def _chunks(data: bytes):
@@ -184,24 +210,27 @@ def encode(array: np.ndarray, filters: Sequence[int] = (0,),
         raise ValueError(f'encode takes (H, W) or (H, W, 3), got '
                          f'{array.shape}')
     h, w = array.shape[:2]
-    x = array.reshape(h, w * bpp).astype(np.int32)
-    left = np.zeros_like(x)
-    left[:, bpp:] = x[:, :-bpp]
-    up = np.zeros_like(x)
-    up[1:] = x[:-1]
-    upleft = np.zeros_like(x)
-    upleft[1:, bpp:] = x[:-1, :-bpp]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, upleft))
-    preds = (0, left, up, (left + up) >> 1, paeth)
+    rows = array.reshape(h, w * bpp)
     kinds = np.array([filters[y % len(filters)] for y in range(h)])
     out = np.empty((h, w * bpp + 1), np.uint8)
     out[:, 0] = kinds
+    if kinds.any():                 # the predictors of filters 1-4
+        x = rows.astype(np.int32)
+        left = np.zeros_like(x)
+        left[:, bpp:] = x[:, :-bpp]
+        up = np.zeros_like(x)
+        up[1:] = x[:-1]
+        upleft = np.zeros_like(x)
+        upleft[1:, bpp:] = x[:-1, :-bpp]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, upleft))
+        preds = (None, left, up, (left + up) >> 1, paeth)
     for k in set(kinds.tolist()):
         sel = kinds == k
-        out[sel, 1:] = ((x[sel] - (preds[k][sel] if k else 0)) & 0xFF)
+        out[sel, 1:] = (rows[sel] if k == 0
+                        else (x[sel] - preds[k][sel]) & 0xFF)
     stream = zlib.compress(out.tobytes(), level)
     step = -(-len(stream) // max(1, idat_chunks))
     parts = [stream[i:i + step] for i in range(0, len(stream), step)] or [b'']

@@ -16,6 +16,8 @@ JAX module are written here, each bit-equal to cv2 on uint8 images:
     except that where a row's width leaves 4-7 columns past its last block
     of 8, the first and third of those take fma(B, 0.114f, fma(G, 0.587f,
     R * 0.299f)): cv2's tail loop.
+`resize_nearest_pil` is PIL's Image.resize(NEAREST), which prediction
+uses for its blends (an accumulated float64 source position a pixel).
 The resizes run their integer work in the native library (native/host.c)
 when it is built, held bit-equal to the numpy versions here.
 
@@ -103,6 +105,29 @@ def nearest_tables(h: int, w: int, nh: int, nw: int):
 def resize_nearest(array: np.ndarray, nw: int, nh: int) -> np.ndarray:
     """cv2.resize(array, (nw, nh), interpolation=cv2.INTER_NEAREST)."""
     sy, sx = nearest_tables(array.shape[0], array.shape[1], nh, nw)
+    out = native.resize_nearest(array, sy, sx)
+    return out if out is not None else array[sy][:, sx]
+
+
+def _pil_nearest_axis(dst: int, src: int) -> np.ndarray:
+    """PIL's source index of each of `dst` pixels (ImagingScaleAffine):
+    the position starts at scale/2 and adds scale = src/dst a pixel, in
+    float64, one rounding a step, truncated. The accumulated rounding is
+    why it is not floor((x + 0.5) * src / dst) at every ratio."""
+    scale = src / dst
+    steps = np.full(dst, scale)
+    steps[0] = scale * 0.5
+    pos = np.add.accumulate(steps)          # sequential, like the C loop
+    return np.clip(pos.astype(np.int64), 0, src - 1)
+
+
+def resize_nearest_pil(array: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    """`np.asarray(Image.fromarray(array).resize((nw, nh),
+    Image.NEAREST))`, bit for bit, without PIL."""
+    h, w = array.shape[:2]
+    if (h, w) == (nh, nw):
+        return array.copy()
+    sy, sx = _pil_nearest_axis(nh, h), _pil_nearest_axis(nw, w)
     out = native.resize_nearest(array, sy, sx)
     return out if out is not None else array[sy][:, sx]
 

@@ -84,7 +84,12 @@ def _resolve(flag: Optional[bool], device: torch.device) -> bool:
 
 
 def compute_dtype(config) -> torch.dtype:
-    name = config.compute_dtype or 'bfloat16'
+    return dtype_named(config.compute_dtype)
+
+
+def dtype_named(name: Optional[str]) -> torch.dtype:
+    """The torch type of a config's compute_dtype (None: bfloat16)."""
+    name = name or 'bfloat16'
     if name not in ('float32', 'bfloat16'):
         raise ValueError(f'compute_dtype {name!r}: the port runs float32 '
                          f'or bfloat16')

@@ -12,6 +12,10 @@ save_ckpt, run, train_one_epoch, validate, val_best).
     read (load_ckpt, val_best) and at the end of run().
   * validate(): the EMA weights, as in the reference and the JAX package
     (with use_ema=False the EMA mirrors the weights exactly).
+  * predict() (config.is_testing: __init__ builds the test folder and the
+    predict weights and nothing else): colormapped PNG masks and blends
+    of config.test_data_folder, through the serving engine (one CUDA
+    graph an exact image shape) and pipeline.
 
 Weights come from Flax-shaped variables (utils/convert.py): given by the
 caller, or drawn from config.random_seed with the initializers of Flax's
@@ -43,8 +47,8 @@ loop spent waiting for batches (host clock).
 
 Switches of the JAX trainer that the port does not implement raise
 NotImplementedError naming the ROADMAP.md Queue 1 item that brings them:
-is_testing and spatial_partition > 1 when the trainer is built, use_tb,
-use_obs, profile_dir and compile_cache in run(). recompile_guard (the JAX
+spatial_partition > 1 when the trainer is built, use_tb, use_obs,
+profile_dir and compile_cache in run(). recompile_guard (the JAX
 package's guard against a retrace of its compiled steps; the port's steps
 are not traced) is accepted and changes nothing.
 """
@@ -59,9 +63,10 @@ import numpy as np
 import torch
 
 from ..config import refuse_unported
-from ..data import get_loader
+from ..data import get_loader, get_test_loader
 from ..data.segpipe import CardCopier, DevicePrefetcher
 from ..models.registry import get_model, get_teacher_model
+from ..obs import MetricsRegistry, set_registry
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
 from ..utils.misc import (get_logger, log_config, mkdir, save_config,
@@ -79,10 +84,8 @@ _INT32_MAX = np.iinfo(np.int32).max
 # config switches of the JAX trainer that the port does not implement yet
 # (config.refuse_unported): those that change what the trainer builds,
 # refused by __init__, and the planes, refused by run()
-_NOT_BUILT = (('is_testing', bool, 'test-set prediction',
-               'Serving engine and predict'),
-              ('spatial_partition', lambda v: v > 1, 'the spatial mesh',
-               'Data parallel'))
+_NOT_BUILT = (('spatial_partition', lambda v: v > 1, 'the spatial mesh',
+               'Data parallel'),)
 _NOT_PORTED = (('use_tb', bool, 'TensorBoard logging', 'The planes'),
                ('use_obs', bool, 'segscope telemetry', 'The planes'),
                ('profile_dir', bool, 'the profiler trace', 'The planes'),
@@ -129,6 +132,13 @@ class SegTrainer:
         self.logger = get_logger(config, main_rank=True)
         mkdir(config.save_dir)
         set_seed(config.random_seed)
+        # the live metrics registry: prediction's pipeline feeds it
+        self.metrics = MetricsRegistry()
+        set_registry(self.metrics)
+        if config.is_testing:
+            self.test_set = get_test_loader(config)
+            self._init_state_for_predict()
+            return
         self.train_loader, self.val_loader = get_loader(config)
         # the card's copies of the batches (None on the CPU)
         self._copier = (CardCopier(self.device, slots=config.device_prefetch
@@ -382,3 +392,96 @@ class SegTrainer:
         if load_meta(best_path) is not None:
             restore_weights(best_path, self.ema_model)
         return self.validate(val_best=True)
+
+    # --------------------------------------------------------------- predict
+    def _init_state_for_predict(self) -> None:
+        """The predict model: Flax's initializers (seed 0, as the JAX
+        trainer's PRNGKey(0) init), then config.load_ckpt_path's weights;
+        a path without a checkpoint raises rather than predicting with
+        random weights."""
+        cfg = self.config
+        model = get_model(cfg, device=self.device).eval()
+        load_jax_variables(model, flax_init_variables(model, 0))
+        if cfg.load_ckpt and cfg.load_ckpt_path:
+            if load_meta(cfg.load_ckpt_path) is None:
+                raise FileNotFoundError(
+                    f'Could not find any pretrained checkpoint at '
+                    f'{cfg.load_ckpt_path}.')
+            restore_weights(cfg.load_ckpt_path, model)
+            self.logger.info(f'Loaded weights from {cfg.load_ckpt_path}')
+        self.predict_model = model
+
+    def predict(self) -> None:
+        """Reference core/seg_trainer.py:154-191: argmax -> colormap LUT ->
+        RGB PNG mask and/or alpha-blend overlay, under save_dir/predicts
+        and save_dir/predicts_blend.
+
+        The images go through the serving engine and pipeline
+        (rtseg_tpu_torch/serve/), bucketed by their exact post-transform
+        shape, read from the PNG headers alone: one CUDA graph a shape at
+        batch test_bs, batches padded in the batch dimension only, which
+        leaves each mask what a one-image batch gives. A sliding window
+        keeps at most max(2 * batch, 8) images resident and writes the
+        outputs in index order. The blend resizes the mask to the raw
+        image with PIL's NEAREST (data/transforms.py resize_nearest_pil)
+        and truncates the float32 blend to uint8, as the JAX package."""
+        from collections import deque
+        from ..data import png
+        from ..data.transforms import resize_nearest_pil
+        from ..export import build_inference_fn
+        from ..serve import ServeEngine, ServePipeline
+        from ..utils.colormap import get_colormap
+        cfg = self.config
+        colormap = get_colormap(cfg)
+        save_dir = os.path.join(cfg.save_dir, 'predicts')
+        blend_dir = os.path.join(cfg.save_dir, 'predicts_blend')
+        mkdir(save_dir)
+        if cfg.blend_prediction:
+            mkdir(blend_dir)
+        n = len(self.test_set)
+        if n == 0:
+            self.logger.info(f'No test images; nothing saved to {save_dir}')
+            return
+        shapes = sorted({self.test_set.shape(i) for i in range(n)})
+        batch = max(1, min(cfg.test_bs, n))
+        engine = ServeEngine(build_inference_fn(self.predict_model,
+                                                cfg.compute_dtype),
+                             shapes, batch, device=self.device,
+                             name='predict_engine')
+
+        def save(path, array):
+            with open(path, 'wb') as f:
+                f.write(png.encode(array))
+
+        def write(raw, name, res):
+            mask_rgb = colormap[res.mask]
+            base = os.path.splitext(name)[0]
+            if cfg.save_mask:
+                save(os.path.join(save_dir, f'{base}.png'), mask_rgb)
+            if cfg.blend_prediction:
+                h, w = raw.shape[:2]
+                up = resize_nearest_pil(mask_rgb, w, h)
+                blend = (raw.astype(np.float32) * (1 - cfg.blend_alpha)
+                         + up.astype(np.float32) * cfg.blend_alpha)
+                save(os.path.join(blend_dir, f'{base}.png'),
+                     blend.astype(np.uint8))
+
+        window = max(2 * batch, 8)
+        pending = deque()                 # (raw, name, future)
+        with ServePipeline(engine, max_wait_ms=1.0,
+                           max_queue=window + batch,
+                           registry=self.metrics) as pipe:
+            for i in range(n):
+                if len(pending) >= window:
+                    raw0, name0, fut = pending.popleft()
+                    write(raw0, name0, fut.result())
+                raw, aug, name = self.test_set.get(i)
+                pending.append((raw, name, pipe.submit(aug)))
+            while pending:
+                raw0, name0, fut = pending.popleft()
+                write(raw0, name0, fut.result())
+        self.predict_stats = engine.stats()
+        self.logger.info(
+            f'Predictions saved to {save_dir} ({len(shapes)} shape '
+            f'bucket(s), {self.predict_stats["cuda_graphs"]} CUDA graphs, '
+            f'batch {batch})')

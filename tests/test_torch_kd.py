@@ -283,9 +283,29 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
         _message(lambda: Custom(SegConfig(dataset='custom',
                                           data_root=jpeg_tree), 'val')),
     ]
-    for flag, value in (('is_testing', True), ('spatial_partition', 2)):
-        messages.append(_message(lambda: SegTrainer(
-            SegConfig(**{flag: value}), device='cpu')))
+    messages.append(_message(lambda: SegTrainer(
+        SegConfig(spatial_partition=2), device='cpu')))
+    # is_testing is ported: the trainer builds for prediction alone
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.serve import ServeEngine, make_preprocess
+    (tmp_path / 'test_imgs').mkdir()
+    (tmp_path / 'test_imgs' / 'a.png').write_bytes(
+        png.encode(np.zeros((16, 24, 3), np.uint8)))
+    t = SegTrainer(SegConfig(is_testing=True, model='fastscnn', num_class=3,
+                             test_data_folder=str(tmp_path / 'test_imgs'),
+                             save_dir=str(tmp_path / 'predict')),
+                   device='cpu')
+    assert len(t.test_set) == 1 and not t.predict_model.training
+    assert not hasattr(t, 'train_loader')
+    # the serving slice's refusals
+    messages += [
+        _message(lambda: ServeEngine.from_artifact('model.stablehlo')),
+        _message(lambda: make_preprocess(SegConfig())(b'\xff\xd8\xff')),
+        _message(lambda: SegTrainer(SegConfig(
+            is_testing=True, test_data_folder=str(tmp_path / 'custom' /
+                                                  'val' / 'imgs')),
+            device='cpu')),
+    ]
     for flag, _, _, _ in tr._NOT_PORTED:
         t = SegTrainer.__new__(SegTrainer)
         t.config = SegConfig(**{'use_tb': False, 'use_obs': False,
@@ -301,7 +321,7 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
         assert len(found) == 1, text
         titles.add(found[0])
     assert titles == {'Trainer, checkpoint and data', 'The planes',
-                      'Serving engine and predict', 'Data parallel'}
+                      'Data parallel'}
     for title in titles:
         assert re.search(r'^\d+\. (~~)?\*\*' + re.escape(title), queue1,
                          re.M), title

@@ -7,7 +7,7 @@ the port against the JAX package's.
 * `main_torch.main(['--device', 'cpu', ...])` trains FastSCNN for an epoch
   of 2 steps on a Custom PNG tree at crop 64, writes last and best, and a
   second call resumes; without a card and without `--device cpu` it
-  raises, as `--is_testing` does.
+  raises; with `--is_testing` it writes the val PNGs' masks and blends.
 * The JAX SegTrainer (on a one-device mesh) and the port's, from the same
   Flax init on the same tree, both through their own get_loader and
   run(): first-epoch losses within 1e-5 (relative), weights within 1e-3
@@ -29,6 +29,7 @@ from rtseg_tpu.config import SegConfig as JaxSegConfig
 from rtseg_tpu.config import load_parser as jax_load_parser
 from rtseg_tpu.utils import misc as jmisc
 from rtseg_tpu_torch.config import SegConfig, get_parser, load_parser
+from rtseg_tpu_torch.data import png
 from rtseg_tpu_torch.train.checkpoint import load_meta
 from rtseg_tpu_torch.utils import misc
 from rtseg_tpu_torch.utils.convert import to_jax_variables
@@ -144,10 +145,17 @@ def test_main_needs_a_card_or_the_cpu_named(tree, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         main_torch.main(_argv(tree, str(tmp_path / 's'), 1))
-    with pytest.raises(NotImplementedError,
-                       match='"Serving engine and predict"'):
-        main_torch.main(['--device', 'cpu', '--is_testing']
-                        + _argv(tree, str(tmp_path / 's'), 1))
+    # --is_testing predicts: the val PNGs' masks and blends
+    trainer, score = main_torch.main(
+        ['--device', 'cpu', '--is_testing', '--test_data_folder',
+         os.path.join(tree, 'val', 'imgs')]
+        + _argv(tree, str(tmp_path / 's'), 1))
+    assert score is None and trainer.device.type == 'cpu'
+    for sub in ('predicts', 'predicts_blend'):
+        names = sorted(os.listdir(tmp_path / 's' / sub))
+        assert len(names) == 3, names
+        assert png.read(str(tmp_path / 's' / sub / names[0]),
+                        'RGB').shape == (48, 60, 3)
 
 
 def _flat(tree, prefix=()):

@@ -313,6 +313,18 @@ def _refused_config(tmp_path, case):
     ('train .jpg', 'Trainer, checkpoint and data'),
     ('val .JPEG', 'Trainer, checkpoint and data')])
 def test_switches_not_ported_raise(tmp_path, case, item):
+    if case == 'is_testing':
+        # ported since: the trainer builds for prediction alone
+        from rtseg_tpu_torch.data import png
+        (tmp_path / 'imgs').mkdir()
+        (tmp_path / 'imgs' / 'a.png').write_bytes(
+            png.encode(np.zeros((16, 24, 3), np.uint8)))
+        t = SegTrainer(_tiny(tmp_path, is_testing=True,
+                             test_data_folder=str(tmp_path / 'imgs')),
+                       device='cpu')
+        assert len(t.test_set) == 1 and not t.predict_model.training
+        assert not hasattr(t, 'train_loader')
+        return
     cfg = _refused_config(tmp_path, case)
     what = (f'{case}=' if ' ' not in case
             else re.escape(f'9{case.split()[1]}'))

@@ -344,7 +344,8 @@ def test_converter_round_trip_and_strictness(bisenet_pair):
 
 def _port_sources():
     files = sorted((ROOT / 'rtseg_tpu_torch').rglob('*.py'))
-    return files + [ROOT / 'chip_smoke.py', ROOT / 'main_torch.py']
+    return files + sorted((ROOT / 'tools').glob('torch_*.py')) + [
+        ROOT / 'chip_smoke.py', ROOT / 'main_torch.py']
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
