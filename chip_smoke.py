@@ -124,11 +124,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      device_norm resolved, uint8 batches and [16, 2] flags on the card,
      the first step's loss against the float tail's on the same samples
      (1e-5), every prefetched batch over 2 epochs equal to a synchronous
-     copy; host ms a batch at steady state (an epoch of 8 batches) with 8
+     copy; host ms a batch at steady state (an epoch of 4 batches) with 8
      threads and with 8 worker processes; (d)
      CONVERGENCE.md's flagship recipe (synthetic, 8 classes, crop 128,
-     bs32, 512 samples, validation every 2 epochs) for 10 epochs and a
-     resume to 20, the loss and EMA mIoU at each validation, the final
+     bs32, 512 samples, validation every 2 epochs) for 2 epochs and a
+     resume to 4 (10 and 20 before PR 14), the loss and EMA mIoU at each
+     validation, the final
      mIoU above epoch 2's; then the pools' fork server and resource
      tracker stopped (segpipe.shutdown), and after phase 8 no process this
      script started still running (read from /proc)
@@ -152,14 +153,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      every mask file equal to the engine's mask, every blend at its
      image's size, the wall and peak memory; K1 and K2 launch counts
      unchanged by the phase (the serving path launches neither)
-  11. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
-     {"import": ...}, {"main": ...} and {"serve": ...} lines, and the
-     {"kernels": [...]} line, whose launch counts are those of the eval
-     slice (phase 4), the train run (phase 5), the zoo's runs (phase 6),
-     the KD runs (phase 6b), the optimizer tail's runs and eval step
-     (phase 6c) and phase 9's runs together, checked exactly against the
-     counts they give: K1 129, K2 161 (phase 10 adds none);
-  12. the {"ok": true, ...} line.
+  11. JPEG, Custom and migration (phase_jpeg): (a) every committed JPEG
+     fixture (tests/data/jpeg/, made by tests/make_jpeg_fixtures.py with
+     PIL) decoded by the native decoder to its PIL digest; the C IDCT,
+     upsampling and colour stages against the numpy ones on a full-size
+     progressive fixture's coefficients; host ms of a 1024x2048 decode,
+     baseline and progressive, on 1 thread and with 8 threads decoding;
+     (b) 20 labelme JSONs embedding the three street JPEGs as imageData
+     (road polygons, cars as _background) through check_datasets into a
+     Custom set of 16 train and 4 val images; the Custom FastSCNN recipe
+     (examples/train_fastscnn_custom.py: 2 classes, ce, bs8, 512 square,
+     bf16) through main_torch.main for 2 epochs of 2 steps and a resume
+     to 3 (launches counted, the data-wait share), then main_torch.py
+     --is_testing on the street JPEGs, each mask file equal to the
+     engine's; (c) tools/torch_segserve.py serve (BiSeNetv2, bucket
+     1024x2048) in a process of its own, 6 JPEG bodies, each ?raw=1 mask
+     equal to engine.run, the process drained by SIGTERM; (d)
+     tools/torch_import_reference.py on a {'state_dict'} .pth of a
+     seeded FastSCNN, the imported model's eval logits at 1024x2048
+     within 1e-4 of the source's; K1/K2 counts unchanged by (c) and (d)
+  12. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
+     {"import": ...}, {"main": ...}, {"serve": ...} and {"jpeg": ...}
+     lines, and the {"kernels": [...]} line, whose launch counts are
+     those of the eval slice (phase 4), the train run (phase 5), the
+     zoo's runs (phase 6), the KD runs (phase 6b), the optimizer tail's
+     runs and eval step (phase 6c), phase 9's runs and phase 11's
+     together, checked exactly against the counts they give: K1 102, K2
+     134 (phase 10 adds none);
+  13. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -1126,8 +1147,8 @@ PROFILED = ('smp FPN MiT-b2',)
 
 # the timed train and eval steps a zoo model, each after one warm-up
 # step (the flagship's phases time 5 after 2): the zoo's depth, cut so
-# that the script keeps within its time limit
-ZOO_TIMED = 3
+# that the script keeps within its time limit (3 in PR 13, 5 before)
+ZOO_TIMED = 1
 
 
 def zoo_key(kw) -> str:
@@ -2369,6 +2390,9 @@ RECIPE = ['--dataset', 'cityscapes', '--num_class', '19', '--model',
 JITTER = ['--brightness', '0.5', '--contrast', '0.5', '--saturation', '0.5']
 # CONVERGENCE.md's flagship recipe (the fields the parser has no flag for
 # go in the config)
+# epochs of each half of the convergence run (a run, then a resume to
+# twice as many): cut from 10 (PR 12) to keep the script within its limit
+CONVERGE_HALF = 2
 CONVERGE = dict(dataset='synthetic', model='bisenetv2', num_class=8,
                 use_aux=True, loss_type='ohem', use_ema=True, train_bs=32,
                 val_bs=32, crop_size=128, synthetic_len=512, val_interval=2,
@@ -2516,8 +2540,8 @@ def phase_main(dev, card):
     """main_torch.py on the card: (a) a Cityscapes tree of PNGs; (b) the
     README's BiSeNetv2 recipe for 2 epochs and a resume to 3; (c) the raw
     uint8 tail with the packed cache, 8 worker processes and the
-    prefetcher; (d) CONVERGENCE.md's flagship recipe for 10 epochs and a
-    resume to 20. Host times a sample and a batch, the step's wall and
+    prefetcher; (d) CONVERGENCE.md's flagship recipe for CONVERGE_HALF
+    epochs and a resume to twice as many. Host times a sample and a batch, the step's wall and
     device time, the loop's data wait."""
     import os
     import main_torch
@@ -2681,9 +2705,10 @@ def phase_main(dev, card):
                       f'prefetched batch {n_batches} differs')
                 n_batches += 1
         del busy, sync, raw_trainer
-        # host ms a batch at steady state: an epoch of 8 batches (the
-        # tree's samples 4 times over), float tail with jitter (b) and raw
-        # tail from the cache (c), 8 threads or 8 worker processes
+        # host ms a batch at steady state: an epoch of 4 batches (the
+        # tree's samples twice over; 8 before PR 14), float tail with
+        # jitter (b) and raw tail from the cache (c), 8 threads or 8
+        # worker processes
         per_batch = {}
         for name, extra in (('float+jitter', dict(brightness=0.5,
                                                   contrast=0.5,
@@ -2695,14 +2720,14 @@ def phase_main(dev, card):
             for k, v in extra.items():
                 setattr(cfg, k, v)
             loader = get_loader(cfg.resolve())[0]
-            ds = _Repeat(loader.dataset, 4)
+            ds = _Repeat(loader.dataset, 2)
             cache = loader.source.cache
             for workers in (0, 8):
                 per_batch[f'{name}, aug_workers {workers}'] = \
                     _loader_batch_ms(ShardedLoader(
                         ds, loader.global_batch, seed=1,
                         workers=cfg.base_workers, raw_tail=loader.raw_tail,
-                        cache=None if cache is None else _Repeat(cache, 4),
+                        cache=None if cache is None else _Repeat(cache, 2),
                         mp_workers=workers))
         loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats_c]
         wait = [s['data_wait_s'] / s['wall_s'] for s in stats_c]
@@ -2719,14 +2744,15 @@ def phase_main(dev, card):
             f'{n_batches} prefetched batches equal to synchronous copies; '
             f'loop ms a step {[round(x, 1) for x in loop]}, data wait share '
             f'{[round(x, 3) for x in wait]}')
-        say('main host ms a batch of 16 at crop 1024, an epoch of 8 '
+        say('main host ms a batch of 16 at crop 1024, an epoch of 4 '
             'batches: ' + '; '.join(
             f'{k} {v:.1f}' for k, v in per_batch.items()))
 
-        # (d) the convergence run: 10 epochs, then a resume to 20
+        # (d) the convergence run: CONVERGE_HALF epochs, then a resume to
+        # twice as many
         save = os.path.join(tmp, 'converge')
         rows, walls = [], []
-        for epochs in (10, 20):
+        for epochs in (CONVERGE_HALF, 2 * CONVERGE_HALF):
             cfg = SegConfig(**CONVERGE)
             t0 = time.perf_counter()
             (t, score), n = _counted(lambda: main_torch.main(
@@ -2737,8 +2763,8 @@ def phase_main(dev, card):
             check(n == {k: (len(t.val_history) + 1) * n_val
                         for k in launches}, f'convergence launches {n}')
             launches = {k: launches[k] + n[k] for k in launches}
-            first = epochs - 10
-            check(len(t.epoch_losses) == 10
+            first = epochs - CONVERGE_HALF
+            check(len(t.epoch_losses) == CONVERGE_HALF
                   and t.val_history[0][0] == first + 2,
                   f'run to {epochs}: {len(t.epoch_losses)} epochs, '
                   f'{t.val_history}')
@@ -2752,9 +2778,9 @@ def phase_main(dev, card):
               f'final mIoU {rows[-1][2]} not above epoch 2\'s {rows[0][2]}')
         out['converge'] = {'rows': rows, 'walls_s': walls,
                            'val_best': score}
-        say(f'main (d) CONVERGENCE.md recipe: 10 epochs {walls[0]:.2f} s, '
-            f'resumed at epoch 10 to 20 {walls[1]:.2f} s; val_best '
-            f'{score:.4f}')
+        say(f'main (d) CONVERGENCE.md recipe: {CONVERGE_HALF} epochs '
+            f'{walls[0]:.2f} s, resumed at epoch {CONVERGE_HALF} to '
+            f'{2 * CONVERGE_HALF} {walls[1]:.2f} s; val_best {score:.4f}')
         out['launches'] = launches
         return launches, out
     finally:
@@ -3212,6 +3238,393 @@ def phase_serve(dev):
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+JPEG_DIR = Path(__file__).resolve().parent / 'tests' / 'data' / 'jpeg'
+JPEG_STREETS = ('street_baseline_420_q90.jpg',
+                'street_progressive_420_q90.jpg', 'street_422_q75_rst.jpg')
+JPEG_JSONS = 20                 # labelme JSONs over the three street scenes
+JPEG_TRAIN_FACTOR = 0.8         # check_datasets' split: 16 train, 4 val
+JPEG_THREADS = 8
+# examples/train_fastscnn_custom.py, cut from 100 epochs to 2 (then a
+# resume to 3); the fields the parser has no flag for go in the config
+CUSTOM_RECIPE = dict(dataset='custom', num_class=2, model='fastscnn',
+                     loss_type='ce', total_epoch=2, train_bs=8, val_bs=4,
+                     base_lr=0.01, train_size=512, test_size=512, h_flip=0.5,
+                     use_tb=False, use_obs=False)
+# what the serving tool's subprocess is given beyond its flags (a CPU
+# rehearsal passes ['--device', 'cpu'])
+SERVE_TOOL_EXTRA = []
+IMPORT_SHAPE = (1024, 2048)
+
+
+def _sha256(a: np.ndarray) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _jpeg_decoder_checks(out):
+    """(a) every fixture against PIL's digest; the C pixel stages against
+    the numpy ones on a full-size fixture's coefficients; host ms of a
+    1024x2048 decode on 1 and on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    from rtseg_tpu_torch import native
+    from rtseg_tpu_torch.data import jpeg
+    check(native.available(),
+          f'the native host library did not build: {native.build_error()}')
+    with open(JPEG_DIR / 'digests.json') as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        rgb = jpeg.decode((JPEG_DIR / name).read_bytes(), 'RGB')
+        check(list(rgb.shape) == want['shape']
+              and _sha256(rgb) == want['sha256'],
+              f'JPEG {name}: the decode differs from PIL\'s digest')
+    name = 'street_progressive_420_q90.jpg'
+    data = (JPEG_DIR / name).read_bytes()
+    rgb, co = native.jpeg_decode(data, coefficients=True)
+    head = native.jpeg_header(data)
+    h, w, factors = head['height'], head['width'], head['factors']
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    planes = []
+    for coef, qt, (fh, fv) in zip(co['coef'], co['qt'], factors):
+        c_plane = native.jpeg_idct(coef, qt)
+        check(np.array_equal(c_plane, jpeg.idct_islow(coef, qt)),
+              f'{name}: the C IDCT differs from numpy\'s')
+        dw, dh = -(-w * fh // hmax), -(-h * fv // vmax)
+        up = native.jpeg_upsample(c_plane, dh, dw, hmax // fh, vmax // fv,
+                                  h, w)
+        check(np.array_equal(up, jpeg.upsample(c_plane, dh, dw, hmax // fh,
+                                               vmax // fv, h, w)),
+              f'{name}: the C upsampling differs from numpy\'s')
+        planes.append(up)
+    c_rgb = native.jpeg_color(planes, co['space'])
+    check(np.array_equal(c_rgb, jpeg.color(planes, co['space']))
+          and np.array_equal(c_rgb, rgb)
+          and np.array_equal(jpeg.pixels(co, h, w, factors), rgb),
+          f'{name}: the C colour conversion or the numpy chain differs')
+    say(f'jpeg (a) {len(digests)} fixtures decoded, each equal to PIL '
+        f'12.1\'s digest; on {name} the C IDCT, upsampling ({hmax}x{vmax} '
+        f'luma) and colour stages equal the numpy stages bit for bit')
+    times = {}
+    for name in JPEG_STREETS[:2]:
+        data = (JPEG_DIR / name).read_bytes()
+        jpeg.decode(data, 'RGB')
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            jpeg.decode(data, 'RGB')
+        one = (time.perf_counter() - t0) / reps * 1e3
+        n = 4 * JPEG_THREADS
+        with ThreadPoolExecutor(JPEG_THREADS) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: jpeg.decode(data, 'RGB'), range(n)))
+            many = (time.perf_counter() - t0) / n * 1e3
+        times[name] = {'ms_1_thread': one,
+                       f'ms_an_image_{JPEG_THREADS}_threads': many}
+        say(f'jpeg (a) {name} ({len(data)} bytes, 1024x2048): {one:.2f} ms '
+            f'a decode on 1 thread; {many:.2f} ms an image with '
+            f'{JPEG_THREADS} threads decoding ({one / many:.2f}x)')
+    out['decode'] = times
+
+
+def labelme_set(root: str, seed: int = 0) -> None:
+    """JPEG_JSONS labelme JSONs in root/labels, each embedding one of the
+    street fixtures as base64 imageData, with its road polygon (label
+    'road') and its cars' ('_background', drawn over the road), every
+    vertex moved by up to 3 pixels a copy."""
+    import base64
+    with open(JPEG_DIR / 'digests.json') as f:
+        digests = json.load(f)
+    rng = np.random.default_rng(seed)
+    labels = os.path.join(root, 'labels')
+    os.makedirs(labels, exist_ok=True)
+    for i in range(JPEG_JSONS):
+        name = JPEG_STREETS[i % len(JPEG_STREETS)]
+        data = (JPEG_DIR / name).read_bytes()
+        h, w = digests[name]['shape'][:2]
+        shapes = []
+        for label, pts in digests[name]['polygons']:
+            moved = np.asarray(pts) + rng.uniform(-3, 3, (len(pts), 2))
+            shapes.append({'label': 'road' if label == 'road'
+                           else '_background',
+                           'points': moved.tolist(), 'group_id': None,
+                           'shape_type': 'polygon', 'flags': {}})
+        record = {'version': '5.2.1', 'flags': {}, 'shapes': shapes,
+                  'imagePath': f'{i:03d}.jpg',
+                  'imageData': base64.b64encode(data).decode(),
+                  'imageHeight': h, 'imageWidth': w}
+        with open(os.path.join(labels, f'{i:03d}.json'), 'w') as f:
+            json.dump(record, f)
+
+
+def _custom_checks(dev, card, out, tmp):
+    """(b) labelme -> check_datasets -> the Custom recipe through
+    main_torch (2 epochs, then a resume to 3), then --is_testing on the
+    street JPEGs against the engine. Returns the K1/K2 launches."""
+    import main_torch
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.data.transforms import EvalTransform
+    from rtseg_tpu_torch.export import build_inference_fn
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.serve import ServeEngine, assemble_batch
+    from rtseg_tpu_torch.train.checkpoint import restore_weights
+    from rtseg_tpu_torch.utils import get_colormap
+    from rtseg_tpu_torch.utils.check_datasets import \
+        check_semantic_segmentation_datasets
+    root = os.path.join(tmp, 'labelme')
+    labelme_set(root)
+    t0 = time.perf_counter()
+    check_semantic_segmentation_datasets(root, train_factor=JPEG_TRAIN_FACTOR)
+    convert_s = time.perf_counter() - t0
+    data_root = os.path.join(root, 'out')
+    split = {m: sorted(os.listdir(os.path.join(data_root, m, 'imgs')))
+             for m in ('train', 'val')}
+    with open(os.path.join(data_root, 'data.yaml')) as f:
+        yaml_text = f.read()
+    check(len(split['train']) == 16 and len(split['val']) == 4
+          and yaml_text.endswith('names:\n  0: _background\n  1: road\n'),
+          f'check_datasets wrote {split} and {yaml_text!r}')
+    mask = png.read(os.path.join(data_root, 'val', 'masks',
+                                 split['val'][0]), 'L')
+    share = float((mask == 1).mean())
+    check(mask.shape == (1024, 2048) and 0.05 < share < 0.95,
+          f'a val mask of shape {mask.shape} is {share:.3f} road')
+    say(f'jpeg (b) check_datasets: {JPEG_JSONS} labelme JSONs with the '
+        f'street JPEGs as imageData -> {len(split["train"])} train and '
+        f'{len(split["val"])} val PNG pairs in {convert_s:.2f} s (a val '
+        f'mask {share:.3f} road)')
+
+    save = os.path.join(tmp, 'custom')
+    cfg = dict(CUSTOM_RECIPE, data_root=data_root, save_dir=save)
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    t0 = time.perf_counter()
+    (trainer, score), n = _counted(lambda: main_torch.main(
+        [], config=SegConfig(**cfg)))
+    wall = time.perf_counter() - t0
+    n_val = len(trainer.val_loader)
+    check(n_val == 1 and [s['steps'] for s in trainer.epoch_stats] == [2, 2]
+          and np.isfinite(trainer.epoch_losses).all()
+          and math.isfinite(score), f'Custom recipe: {n_val} val batches, '
+          f'{trainer.epoch_stats}, losses {trainer.epoch_losses}, mIoU '
+          f'{score}')
+    check(n == {'resize_argmax': 3 * n_val, 'confusion_matrix': 3 * n_val},
+          f'Custom recipe launches {n}')
+    launches = {k: launches[k] + n[k] for k in launches}
+    stats = trainer.epoch_stats
+    losses = list(trainer.epoch_losses)
+    del trainer
+    (resumed, score_r), n = _counted(lambda: main_torch.main(
+        [], config=SegConfig(**dict(cfg, total_epoch=3))))
+    check(len(resumed.epoch_losses) == 1
+          and resumed.val_history[0][0] == 3
+          and np.isfinite(resumed.epoch_losses).all(),
+          f'Custom resume: {resumed.epoch_losses}, {resumed.val_history}')
+    check(n == {'resize_argmax': 2 * n_val, 'confusion_matrix': 2 * n_val},
+          f'Custom resume launches {n}')
+    launches = {k: launches[k] + n[k] for k in launches}
+    del resumed
+    loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats]
+    wait = [s['data_wait_s'] / s['wall_s'] for s in stats]
+    out['custom'] = {'convert_s': convert_s, 'wall_s': wall,
+                     'losses': losses, 'miou': score,
+                     'resumed_miou': score_r, 'loop_ms_a_step': loop,
+                     'data_wait_share': wait}
+    say(f'jpeg (b) Custom recipe (FastSCNN, 2 classes, ce, bs8, 512 '
+        f'square, bf16; {card}): run() 2 epochs of 2 steps {wall:.2f} s, '
+        f'losses {[round(x, 4) for x in losses]}, mIoU {score:.4f}; loop ms '
+        f'a step {[round(x, 1) for x in loop]}, data wait share '
+        f'{[round(x, 3) for x in wait]}; resume to epoch 3: mIoU '
+        f'{score_r:.4f}')
+
+    # --is_testing on the street JPEGs from the run's best.ckpt
+    folder = os.path.join(tmp, 'photos')
+    os.makedirs(folder)
+    for name in JPEG_STREETS:
+        shutil.copy(JPEG_DIR / name, os.path.join(folder, name))
+    best = os.path.join(save, 'best.ckpt')
+    pred = os.path.join(tmp, 'predict')
+    t0 = time.perf_counter()
+    trainer, _ = main_torch.main(
+        ['--is_testing', '--test_data_folder', folder, '--load_ckpt_path',
+         best, '--save_dir', pred, '--model', 'fastscnn', '--num_class', '2',
+         '--test_bs', '2'])
+    pwall = time.perf_counter() - t0
+    model = get_model(trainer.config, device=dev).eval()
+    restore_weights(best, model)
+    engine = ServeEngine(build_inference_fn(model,
+                                            trainer.config.compute_dtype),
+                         [(1024, 2048)], 2)
+    transform = EvalTransform(trainer.config)
+    cmap = get_colormap(trainer.config)
+    from rtseg_tpu_torch.data import image as image_file
+    for name in JPEG_STREETS:
+        raw = image_file.read(os.path.join(folder, name), 'RGB')
+        mask = engine.run((1024, 2048), assemble_batch(
+            [transform(raw)], (1024, 2048), 2))[0]
+        got = png.read(os.path.join(pred, 'predicts',
+                                    name.replace('.jpg', '.png')), 'RGB')
+        check(np.array_equal(got, cmap[mask]),
+              f'predict {name}: the mask file differs from the engine\'s')
+    out['predict'] = {'images': len(JPEG_STREETS), 'wall_s': pwall}
+    say(f'jpeg (b) main_torch --is_testing on {len(JPEG_STREETS)} street '
+        f'JPEGs from the run\'s best.ckpt in {pwall:.2f} s: each mask file '
+        f'equal to the engine\'s mask')
+    del trainer, engine, model
+    return launches
+
+
+def _jpeg_serve_checks(dev, out, tmp):
+    """(c) tools/torch_segserve.py serve (BiSeNetv2, 1024x2048 bucket) in
+    a process of its own, JPEG bodies over HTTP: each ?raw=1 mask equal
+    to engine.run on the decoded image."""
+    import signal
+    import urllib.request
+    from rtseg_tpu_torch.export import build_inference_fn
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.serve import (ServeEngine, assemble_batch,
+                                       make_preprocess)
+    from rtseg_tpu_torch.train.checkpoint import save_best_ckpt
+    from rtseg_tpu_torch.train.state import TrainState
+    from rtseg_tpu_torch.utils.convert import flax_init_variables, \
+        load_jax_variables
+    cfg = _serve_config()
+    model = get_model(cfg, device=dev).eval()
+    load_jax_variables(model, flax_init_variables(model, 2))
+    ckpt = os.path.join(tmp, 'serve_ckpt', 'best.ckpt')
+    save_best_ckpt(ckpt, TrainState(0, model, None, model), 1, 0.0)
+    port_file = os.path.join(tmp, 'serve.port')
+    tool = Path(__file__).resolve().parent / 'tools' / 'torch_segserve.py'
+    log = open(os.path.join(tmp, 'serve.log'), 'w')
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(tool), 'serve', '--model', 'bisenetv2',
+         '--num_class', str(C), '--buckets', '1024x2048', '--batch', '2',
+         '--ckpt', ckpt, '--host', '127.0.0.1', '--port', '0',
+         '--port-file', port_file, '--no-metrics', *SERVE_TOOL_EXTRA],
+        stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while not os.path.exists(port_file):
+            check(proc.poll() is None and time.perf_counter() - t0 < 180,
+                  f'the serve process did not start: rc {proc.poll()}')
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        with open(port_file) as f:
+            url = f'http://127.0.0.1:{int(f.read())}/predict?raw=1'
+        bodies = [(JPEG_DIR / name).read_bytes() for name in JPEG_STREETS]
+        answers = []
+        t0 = time.perf_counter()
+        for body in bodies + bodies:
+            req = urllib.request.Request(url, data=body, method='POST')
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                shape = tuple(int(v) for v in
+                              resp.headers['X-Mask-Shape'].split(','))
+                answers.append(np.frombuffer(resp.read(),
+                                             np.int8).reshape(shape))
+        wall = time.perf_counter() - t0
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+    check(rc == 0, f'the serve process exited {rc}')
+    engine = ServeEngine(build_inference_fn(model, cfg.compute_dtype),
+                         [(1024, 2048)], 2)
+    prep = make_preprocess(cfg)
+    for i, body in enumerate(bodies + bodies):
+        want = engine.run((1024, 2048), assemble_batch(
+            [prep(body)], (1024, 2048), 2))[0]
+        check(np.array_equal(answers[i], want),
+              f'served mask {i} ({JPEG_STREETS[i % 3]}) differs from '
+              f'engine.run')
+    out['serve'] = {'requests': len(answers), 'ready_s': ready_s,
+                    'wall_s': wall}
+    say(f'jpeg (c) tools/torch_segserve.py serve (BiSeNetv2, bucket '
+        f'1024x2048, batch 2) ready in {ready_s:.2f} s; {len(answers)} '
+        f'JPEG bodies answered in {wall:.2f} s, each ?raw=1 mask equal to '
+        f'engine.run on PIL\'s decode; the process drained and exited 0')
+    del engine, model
+
+
+def _pth_import_checks(dev, out, tmp):
+    """(d) tools/torch_import_reference.py on a {'state_dict': ...} .pth
+    of a seeded FastSCNN (19 classes) in call order; the imported
+    checkpoint's eval logits at 1024x2048 on the card against the source
+    model's."""
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.train.checkpoint import load_meta, restore_weights
+    from rtseg_tpu_torch.utils.convert import load_jax_variables, \
+        random_jax_variables
+    from rtseg_tpu_torch.utils.transplant import torch_leaf_order
+    cfg = SegConfig(model='fastscnn', num_class=C)
+    src = get_model(cfg, device='cpu')
+    load_jax_variables(src, random_jax_variables(src, 4))
+    src.eval()
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, (1, 64, 64, 3)).astype(np.float32))
+    sd = {}
+    for unit in torch_leaf_order(src, lambda m: m(x)):
+        for leaf, value in unit.arrays.items():
+            sd[f'{unit.name}.{leaf}'] = torch.from_numpy(value)
+    pth = os.path.join(tmp, 'reference.pth')
+    torch.save({'state_dict': sd, 'cur_epoch': 7}, pth)
+    dst_dir = os.path.join(tmp, 'imported.ckpt')
+    t0 = time.perf_counter()
+    rc = _load_tool('torch_import_reference').main(
+        ['--model', 'fastscnn', '--num_class', str(C), '--pth', pth,
+         '--out', dst_dir])
+    import_s = time.perf_counter() - t0
+    meta = load_meta(dst_dir)
+    check(rc == 0 and meta['kind'] == 'best'
+          and meta['imported_from'] == os.path.abspath(pth),
+          f'import: rc {rc}, meta {meta}')
+    dst = get_model(cfg, device=dev).eval()
+    restore_weights(dst_dir, dst)
+    src = src.to(dev)
+    img = torch.from_numpy(np.random.default_rng(6).uniform(
+        -2, 2, (1, *IMPORT_SHAPE, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        err = float((dst(img) - src(img)).abs().max())
+    check(err <= 1e-4, f'imported FastSCNN logits differ by {err}')
+    out['import'] = {'units': len(sd), 'import_s': import_s,
+                     'max_abs_err': err}
+    say(f'jpeg (d) tools/torch_import_reference.py: a {len(sd)}-tensor '
+        f'FastSCNN .pth imported in {import_s:.2f} s; eval logits at '
+        f'{IMPORT_SHAPE[0]}x{IMPORT_SHAPE[1]} on the card within {err:.2e} '
+        f'of the source model\'s (tolerance 1e-4)')
+
+
+def phase_jpeg(dev, card):
+    """Phase 11: JPEG, Custom and migration. (a) the decoder against
+    PIL's digests and its numpy stages, and its host time; (b) labelme
+    -> check_datasets -> the FastSCNN Custom recipe through main_torch,
+    its resume, and --is_testing on JPEGs; (c) JPEG bodies served by
+    tools/torch_segserve.py; (d) the reference .pth import. Only (b)'s
+    validations launch K1 and K2."""
+    from rtseg_tpu_torch.ops.fused_head import resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_jpeg_')
+    try:
+        _jpeg_decoder_checks(out)
+        launches = _custom_checks(dev, card, out, tmp)
+        torch.cuda.empty_cache()
+        before = (resize_argmax.launches, confusion_matrix_pallas.launches)
+        _jpeg_serve_checks(dev, out, tmp)
+        _pth_import_checks(dev, out, tmp)
+        after = (resize_argmax.launches, confusion_matrix_pallas.launches)
+        check(after == before, f'serving or the import launched K1/K2: '
+              f'{before} -> {after}')
+    finally:
+        from rtseg_tpu_torch.data.segpipe import shutdown
+        shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def _descendants() -> list:
     """(pid, command) of every live process this one started, directly or
     not, read from /proc."""
@@ -3273,19 +3686,23 @@ def main() -> int:
     elapsed('9 (main)')
     serve = phase_serve(dev)
     elapsed('10 (serve)')
+    jpeg_launches, jpeg = phase_jpeg(dev, card)
+    elapsed('11 (JPEG, Custom and migration)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
-                + optim_launches[k] + main_launches[k]
+                + optim_launches[k] + main_launches[k] + jpeg_launches[k]
                 for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
     # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits), 2 each
     # for the MiT-b2 AdamW and the BiSeNetv2 Adam runs and 1 for the eval
     # step with norm_coeffs; phase 9: 5 for the README recipe and its
-    # resume, 3 for the raw tail's run, 6 validations of 4 batches in each
-    # half of the convergence run
+    # resume, 3 for the raw tail's run, the convergence run's validations
+    # (every 2 epochs and val_best's) of 4 batches in each half; phase 11:
+    # 5 for the Custom recipe and its resume
     want = {'resize_argmax': 15 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
             'confusion_matrix': 15 + 2 * len(ZOO)}
-    want = {k: v + 5 + 3 + 2 * 6 * 4 for k, v in want.items()}
+    converge = 2 * (CONVERGE_HALF // 2 + 1) * 4
+    want = {k: v + 5 + 3 + converge + 5 for k, v in want.items()}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
@@ -3299,6 +3716,7 @@ def main() -> int:
     say(json.dumps({'import': imports}))
     say(json.dumps({'main': main_run}))
     say(json.dumps({'serve': serve}))
+    say(json.dumps({'jpeg': jpeg}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

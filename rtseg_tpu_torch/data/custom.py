@@ -9,8 +9,9 @@ Square-resize via config.train_size / test_size, identity normalization.
 The port reads data.yaml without PyYAML (`read_data_yaml`): `path` and
 `names` (a block or flow mapping of int to str), other top-level keys
 with plain scalar values (ignored), comments and blank lines. Any other
-construct raises ValueError. The images must be PNGs: the port has no JPEG
-decoder yet, and a Custom set with another image type raises.
+construct raises ValueError. As in the JAX package, every file in
+imgs/ is an image (PNG or JPEG, data/image.py: another format raises
+when it is read) and its mask is the PNG of the same base name in masks/.
 """
 
 from __future__ import annotations
@@ -135,12 +136,6 @@ class Custom(SegpipeFileDataset):
 
         self.images, self.masks = [], []
         for fn in sorted(os.listdir(img_dir)):
-            base, ext = os.path.splitext(fn)
-            if ext.lower() != '.png':
-                raise NotImplementedError(
-                    f'{os.path.join(img_dir, fn)}: images other than PNG '
-                    f'(a JPEG decoder) are not ported to PyTorch yet; '
-                    f'convert the set to PNG (see ROADMAP.md Queue 1, '
-                    f'"Trainer, checkpoint and data")')
+            base = os.path.splitext(fn)[0]
             self.images.append(os.path.join(img_dir, fn))
             self.masks.append(os.path.join(msk_dir, base + '.png'))

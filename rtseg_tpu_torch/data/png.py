@@ -17,7 +17,8 @@ loop for the Average and Paeth filters (seconds at 1024x2048).
 `encode(array)` writes gray or RGB 8-bit PNGs, cycling the filter types
 row by row when asked: prediction's masks and blends, the server's
 responses, the tests' and chip_smoke.py's trees. `read_size(path)` reads
-the IHDR alone; `require_png` refuses other formats.
+the IHDR alone. data/image.py sends each file here or to data/jpeg.py by
+its signature.
 """
 
 from __future__ import annotations
@@ -35,23 +36,11 @@ SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def require_png(head: bytes, what: str) -> None:
-    """Raise NotImplementedError unless `head` (a file's first bytes)
-    opens with the PNG signature: the port decodes no other format."""
-    if head[:8] != SIGNATURE:
-        raise NotImplementedError(
-            f'{what} is not a PNG: images other than PNG (a JPEG decoder) '
-            f'are not ported to PyTorch yet; convert them to PNG (see '
-            f'ROADMAP.md Queue 1, "Trainer, checkpoint and data")')
-
-
 def read_size(path: str):
     """(height, width) of a PNG from its IHDR chunk alone (the first 33
-    bytes), without decoding it; a file that is not a PNG raises
-    NotImplementedError."""
+    bytes), without decoding it."""
     with open(path, 'rb') as f:
         head = f.read(33)
-    require_png(head, path)
     kind, body = next(_chunks(head))
     if kind != b'IHDR':
         raise ValueError(f'{path}: the first PNG chunk is {kind!r}, not IHDR')

@@ -1,5 +1,6 @@
 """Shared segpipe protocol for file-backed datasets (counterpart of
-rtseg_tpu/data/protocol.py), reading PNGs through data/png.py.
+rtseg_tpu/data/protocol.py), reading PNG and JPEG images through
+data/image.py and PNG masks through data/png.py.
 
 ``get == augment(*prepare(i), rng)``: ``prepare`` is the deterministic
 decode + resize head the packed cache stores once; ``augment`` /
@@ -20,6 +21,7 @@ import os
 
 import numpy as np
 
+from . import image as image_file
 from . import png
 
 
@@ -33,7 +35,7 @@ class SegpipeFileDataset:
         return mask.astype(np.int32)
 
     def prepare(self, index: int):
-        image = png.read(self.images[index], 'RGB')
+        image = image_file.read(self.images[index], 'RGB')
         mask = png.read(self.masks[index], 'L')
         return self.transform.prefix(image, mask)
 

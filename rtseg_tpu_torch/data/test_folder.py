@@ -1,16 +1,16 @@
 """Inference-time folder dataset (counterpart of
 rtseg_tpu/data/test_folder.py; reference datasets/test_dataset.py:10-40):
-a flat directory of PNGs -> (raw image, normalized image, filename).
+a flat directory of images -> (raw image, normalized image, filename).
 
-The port decodes PNGs only (data/png.py): a file that is not a PNG
-raises NotImplementedError when the folder is opened, naming the JPEG
-decoder's ROADMAP.md item; it is never skipped."""
+The port decodes PNGs and JPEGs (data/image.py): a file of another
+format raises NotImplementedError when the folder is opened; it is never
+skipped."""
 
 from __future__ import annotations
 
 import os
 
-from . import png
+from . import image as image_file
 from .transforms import EvalTransform
 
 
@@ -28,7 +28,7 @@ class TestFolder:
         for fn in sorted(os.listdir(folder)):
             path = os.path.join(folder, fn)
             with open(path, 'rb') as f:
-                png.require_png(f.read(8), path)
+                image_file.kind(f.read(image_file.HEAD), path)
             self.images.append(path)
             self.img_names.append(fn)
 
@@ -36,16 +36,16 @@ class TestFolder:
         return len(self.images)
 
     def get(self, index: int, rng=None):
-        image = png.read(self.images[index], 'RGB')
+        image = image_file.read(self.images[index], 'RGB')
         aug = self.transform(image, None, rng)
         return image, aug, self.img_names[index]
 
     def shape(self, index: int):
-        """Post-transform (h, w) from the PNG's IHDR alone (no decode),
+        """Post-transform (h, w) from the file's header alone (no decode),
         through EvalTransform's only shape-changing step here
         (transforms.scale, which truncates with int()): how prediction
         finds a folder's buckets without holding any image."""
-        h, w = png.read_size(self.images[index])
+        h, w = image_file.read_size(self.images[index])
         factor = self.transform.config.scale
         if factor != 1.0:
             h, w = int(h * factor), int(w * factor)

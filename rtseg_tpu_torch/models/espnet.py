@@ -50,8 +50,9 @@ class ESPModule(nn.Module):
 
     def forward(self, x):
         if self.split:
-            feats = [self.ConvBNAct_0(self.conv_k1(x))]
+            y1 = self.conv_k1(x)         # both 1x1 convs first, as in JAX
             y = self.conv_kn(x)
+            feats = [self.ConvBNAct_0(y1)]
             first = 2                   # the k1 branch is not summed on
         else:
             y = self.Conv_0(x)

@@ -514,8 +514,8 @@ class PABlock(nn.Module):
         def flat(y):            # NHWC order, as the JAX package flattens
             return y.permute(0, 2, 3, 1).reshape(n, hw, -1)
 
-        att = torch.bmm(flat(self.center(x)), flat(self.top(x)).transpose(
-            1, 2))
+        top = self.top(x)               # called in the JAX package's order
+        att = torch.bmm(flat(self.center(x)), flat(top).transpose(1, 2))
         att = torch.softmax(att.reshape(n, hw * hw).float(), dim=-1)
         att = att.reshape(n, hw, hw).to(x.dtype)
         out = torch.bmm(att, flat(self.bottom(x)))

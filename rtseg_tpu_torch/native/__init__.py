@@ -6,16 +6,21 @@ copy (`normalize_hwc`, `hflip_mask`, as in the JAX package) and the two
 routines the port adds to read Cityscapes-sized PNGs without PIL or cv2:
 PNG row unfiltering (`png_unfilter`, data/png.py) and the uint8 resizes
 (`resize_linear_u8`, `resize_nearest`, data/transforms.py). Each is held
-bit-equal to the numpy version beside its caller. ctypes releases the GIL
-for the call, so the loader's threads run them in parallel.
+bit-equal to the numpy version beside its caller. `jpeg.c` is the JPEG
+decoder of data/jpeg.py (`jpeg_header`, `jpeg_decode` and its pixel
+stages `jpeg_idct`, `jpeg_upsample`, `jpeg_color`), which has no numpy
+path: data/jpeg.py raises with `build_error()` when the library is
+missing. ctypes releases the GIL for the call, so the loader's threads
+run them in parallel.
 
-Build: one `cc -O3 -ffp-contract=off -shared -fPIC` at first use into
-`rtseg_tpu_torch/_build/librtseg_host.so` (rebuilt when host.c or this
-file is newer), compiled to a temporary name and renamed into place. If
-it fails, `available()` is False, `build_error()` says why, and callers
-take the numpy path, as in the JAX package; where the native path is
-required (chip_smoke.py on the card) the caller checks `available()`.
-`counts()` gives the calls made in this process, by routine.
+Build: one `cc -O3 -ffp-contract=off -shared -fPIC` of both sources at
+first use into `rtseg_tpu_torch/_build/librtseg_host.so` (rebuilt when a
+source or this file is newer), compiled to a temporary name and renamed
+into place. If it fails, `available()` is False, `build_error()` says
+why, and the callers of host.c's routines take the numpy path, as in the
+JAX package; where the native path is required (chip_smoke.py on the
+card) the caller checks `available()`. `counts()` gives the calls made in
+this process, by routine.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-_SRC = Path(__file__).parent / 'host.c'
+_SRCS = (Path(__file__).parent / 'host.c', Path(__file__).parent / 'jpeg.c')
 _SO = Path(__file__).resolve().parent.parent / '_build' / 'librtseg_host.so'
 
 _lib = None
@@ -44,7 +49,8 @@ def _build() -> Optional[Path]:
     for build_error() and the callers take the numpy path."""
     global _error
     try:
-        newest = max(_SRC.stat().st_mtime, Path(__file__).stat().st_mtime)
+        newest = max(p.stat().st_mtime
+                     for p in (*_SRCS, Path(__file__)))
         if _SO.exists() and _SO.stat().st_mtime >= newest:
             return _SO
         _SO.parent.mkdir(parents=True, exist_ok=True)
@@ -53,7 +59,7 @@ def _build() -> Optional[Path]:
         # like the numpy path (and the card's 256-entry table built from
         # it); an fmadd would move it by an ulp
         cmd = [os.environ.get('CC', 'cc'), '-O3', '-ffp-contract=off',
-               '-shared', '-fPIC', '-o', str(tmp), str(_SRC)]
+               '-shared', '-fPIC', '-o', str(tmp), *map(str, _SRCS)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
         if proc.returncode != 0:
@@ -104,6 +110,20 @@ def _declare(lib):
     lib.resize_nearest.argtypes = [u8p, long, long, u8p, long, long, i64p,
                                    i64p]
     lib.resize_nearest.restype = None
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    lib.jpeg_header.argtypes = [u8p, long, i32p, ctypes.c_char_p, long]
+    lib.jpeg_header.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [u8p, long, u8p, i16p, u16p, i32p,
+                                ctypes.c_char_p, long]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_idct_islow_blocks.argtypes = [i16p, u16p, long, long, u8p]
+    lib.jpeg_idct_islow_blocks.restype = None
+    lib.jpeg_upsample.argtypes = [u8p, long, long, long, ctypes.c_int,
+                                  ctypes.c_int, u8p, long, long]
+    lib.jpeg_upsample.restype = ctypes.c_int
+    lib.jpeg_color.argtypes = [u8p, u8p, u8p, ctypes.c_int, u8p, long]
+    lib.jpeg_color.restype = None
     return lib
 
 
@@ -238,4 +258,144 @@ def resize_nearest(array: np.ndarray, sy: np.ndarray,
                        _ptr(out, ctypes.c_uint8), len(sy), len(sx),
                        _ptr(sy, ctypes.c_int64), _ptr(sx, ctypes.c_int64))
     _count('resize_nearest')
+    return out
+
+
+# ------------------------------------------------------------------- JPEG
+
+JPEG_CORRUPT, JPEG_UNSUPPORTED, JPEG_NOMEM = -1, -2, -3
+
+
+def _jpeg_lib():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f'the JPEG decoder is native code only, and the '
+                           f'native library did not build: {build_error()}')
+    return lib
+
+
+def _jpeg_raise(rc: int, err) -> None:
+    msg = err.value.decode(errors='replace')
+    if rc == JPEG_UNSUPPORTED:
+        raise NotImplementedError(msg)
+    if rc == JPEG_NOMEM:
+        raise MemoryError(msg)
+    raise ValueError(msg)
+
+
+def jpeg_header(data: bytes) -> Dict[str, object]:
+    """The frame header of a JPEG: {'height', 'width', 'components',
+    'progressive', 'factors': [(h, v) a component]}. Raises ValueError
+    (corrupt), NotImplementedError (a frame the decoder refuses)."""
+    lib = _jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(10, np.int32)
+    err = ctypes.create_string_buffer(256)
+    rc = lib.jpeg_header(_ptr(buf, ctypes.c_uint8), buf.size,
+                         _ptr(info, ctypes.c_int32), err, 256)
+    if rc:
+        _jpeg_raise(rc, err)
+    n = int(info[2])
+    return {'height': int(info[0]), 'width': int(info[1]), 'components': n,
+            'progressive': bool(info[3]),
+            'factors': [(int(info[4 + 2 * i]), int(info[5 + 2 * i]))
+                        for i in range(n)]}
+
+
+def jpeg_decode(data: bytes, coefficients: bool = False):
+    """(H, W, 3) uint8 RGB of a JPEG. With `coefficients`, also a dict of
+    the decoded stream's coefficients before the pixel stages:
+    {'coef': [(blocks high, blocks wide, 64) int16 a component, natural
+    order, as decoded], 'qt': (components, 64) uint16, 'space': 0 gray,
+    1 YCbCr, 2 RGB}. Raises as jpeg_header does."""
+    lib = _jpeg_lib()
+    head = jpeg_header(data)
+    h, w = head['height'], head['width']
+    factors = head['factors']
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    coef = qt = space = None
+    shapes = []
+    if coefficients:
+        hmax = max(f[0] for f in factors)
+        vmax = max(f[1] for f in factors)
+        for fh, fv in factors:
+            if len(factors) == 1:
+                shapes.append((-(-h // 8), -(-w // 8)))
+            else:
+                shapes.append((-(-h // (8 * vmax)) * fv,
+                               -(-w // (8 * hmax)) * fh))
+        coef = np.zeros(sum(a * b for a, b in shapes) * 64, np.int16)
+        qt = np.zeros((len(factors), 64), np.uint16)
+        space = np.zeros(1, np.int32)
+    rc = lib.jpeg_decode(
+        _ptr(buf, ctypes.c_uint8), buf.size, _ptr(out, ctypes.c_uint8),
+        None if coef is None else _ptr(coef, ctypes.c_int16),
+        None if qt is None else _ptr(qt, ctypes.c_uint16),
+        None if space is None else _ptr(space, ctypes.c_int32), err, 256)
+    _count('jpeg_decode')
+    if rc:
+        _jpeg_raise(rc, err)
+    if not coefficients:
+        return out
+    parts, off = [], 0
+    for bh, bw in shapes:
+        parts.append(coef[off:off + bh * bw * 64].reshape(bh, bw, 64))
+        off += bh * bw * 64
+    return out, {'coef': parts, 'qt': qt, 'space': int(space[0])}
+
+
+def jpeg_idct(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """(bh*8, bw*8) uint8 samples of (bh, bw, 64) int16 blocks (natural
+    order) through dequantization by the 64-entry `qt` and the ISLOW
+    IDCT."""
+    lib = _jpeg_lib()
+    coef = np.ascontiguousarray(coef, np.int16)
+    qt = np.ascontiguousarray(qt, np.uint16)
+    if coef.ndim != 3 or coef.shape[2] != 64 or qt.shape != (64,):
+        raise ValueError(f'jpeg_idct takes (bh, bw, 64) blocks and 64 '
+                         f'table entries, got {coef.shape} and {qt.shape}')
+    bh, bw = coef.shape[:2]
+    out = np.empty((bh * 8, bw * 8), np.uint8)
+    lib.jpeg_idct_islow_blocks(_ptr(coef, ctypes.c_int16),
+                               _ptr(qt, ctypes.c_uint16), bh, bw,
+                               _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def jpeg_upsample(plane: np.ndarray, dh: int, dw: int, hr: int, vr: int,
+                  oh: int, ow: int) -> np.ndarray:
+    """The (oh, ow) top-left of the (dh, dw) top-left of `plane`
+    upsampled by (hr, vr), as the decoder does it."""
+    lib = _jpeg_lib()
+    plane = np.ascontiguousarray(plane, np.uint8)
+    if plane.ndim != 2 or not (0 < dh <= plane.shape[0]
+                               and 0 < dw <= plane.shape[1]
+                               and 0 < oh <= dh * vr and 0 < ow <= dw * hr):
+        raise ValueError(f'jpeg_upsample: ({dh}, {dw}) of a plane of '
+                         f'{plane.shape} to ({oh}, {ow}) by ({hr}, {vr})')
+    out = np.empty((oh, ow), np.uint8)
+    rc = lib.jpeg_upsample(_ptr(plane, ctypes.c_uint8), plane.shape[1], dh,
+                           dw, hr, vr, _ptr(out, ctypes.c_uint8), oh, ow)
+    if rc:
+        raise NotImplementedError(f'upsampling by ({hr}, {vr})')
+    return out
+
+
+def jpeg_color(planes: Sequence[np.ndarray], space: int) -> np.ndarray:
+    """(H, W, 3) RGB of one gray plane or three planes of colour space
+    `space` (1 YCbCr, 2 RGB)."""
+    lib = _jpeg_lib()
+    planes = [np.ascontiguousarray(p, np.uint8) for p in planes]
+    if len(planes) not in (1, 3) or planes[0].ndim != 2 or any(
+            p.shape != planes[0].shape for p in planes):
+        raise ValueError(f'jpeg_color takes 1 or 3 planes of one 2-D '
+                         f'shape, got {[p.shape for p in planes]}')
+    h, w = planes[0].shape
+    out = np.empty((h, w, 3), np.uint8)
+    ptrs = [_ptr(p, ctypes.c_uint8) for p in planes]
+    if len(ptrs) == 1:
+        ptrs += [None, None]
+    lib.jpeg_color(*ptrs, space, _ptr(out, ctypes.c_uint8), h * w)
     return out

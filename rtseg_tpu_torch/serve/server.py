@@ -5,9 +5,9 @@ ThreadingHTTPServer: one handler thread a connection; handlers block on
 their request's Future while the batcher coalesces across them.
 
 API:
-  * ``POST /predict`` (or ``/``): the body is a PNG (data/png.py decodes
-    it; another format fails with a 500 whose message names ROADMAP.md
-    Queue 1, "Trainer, checkpoint and data", the JPEG decoder). 200 is the
+  * ``POST /predict`` (or ``/``): the body is a PNG or a JPEG
+    (data/image.py decodes it, as PIL does; a corrupt body or another
+    format fails with a 500 that says why). 200 is the
     colormapped mask as an RGB PNG (data/png.py encode; ``?raw=1``: the
     int8 class ids as bytes, with ``X-Mask-Shape``). The per-stage
     latency split rides in ``X-Serve-Timing`` as JSON, trace id
@@ -49,7 +49,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import not_ported
-from ..data import png
+from ..data import image, png
 from ..obs.core import update_memory_gauges
 from ..obs.metrics import render_prometheus
 from ..obs.tracing import TRACE_KEY, new_trace_id, valid_trace_id
@@ -373,14 +373,14 @@ def make_server(pipeline: ServePipeline, host: str = '127.0.0.1',
 
 
 def make_preprocess(config):
-    """bytes -> preprocessed (h, w, 3) f32 image: a PNG decoded by
-    data/png.py, then the EvalTransform the validation path uses
+    """bytes -> preprocessed (h, w, 3) f32 image: a PNG or a JPEG decoded
+    by data/image.py, then the EvalTransform the validation path uses
     (data/transforms.py). Other formats raise NotImplementedError."""
     from ..data.transforms import EvalTransform
     transform = EvalTransform(config)
 
     def preprocess(data: bytes) -> np.ndarray:
-        png.require_png(data[:8], 'the request body')
-        return transform(png.decode(data, 'RGB'), None, None)
+        return transform(image.decode(data, 'RGB', 'the request body'),
+                         None, None)
 
     return preprocess

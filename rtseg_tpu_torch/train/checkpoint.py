@@ -15,7 +15,11 @@ the optimizer's buffers are stored as nested dicts of CPU tensors under
 their Flax paths (utils/convert.py), the layout of the JAX package's
 trees: SGD's `momentum`; Adam's and AdamW's `exp_avg` and `exp_avg_sq`
 with their update count `adam_step`. A train checkpoint resumes only
-under the optimizer that wrote it.
+under the optimizer that wrote it. `save_weights_ckpt` writes the "best"
+format (the EMA weights of `write_best_ckpt`, and the reference `.pth`
+import of tools/torch_import_reference.py); `from_orbax_tree` maps a JAX
+checkpoint's restored tree into this layout (tools/orbax_to_torch.py, the
+one bridge that needs both installations).
 
 A write takes a snapshot first (`snapshot_state`): a device-side copy of
 the tensors, queued on the current stream, which the next train step
@@ -135,14 +139,17 @@ def snapshot_state(state: TrainState, weights_only: bool = False) -> dict:
 
 def _as_tensors(tree: Mapping) -> dict:
     return {k: _as_tensors(v) if isinstance(v, Mapping)
-            else torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+            else v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v)) for k, v in tree.items()}
 
 
 def _flax(sd: Mapping[str, torch.Tensor], model: torch.nn.Module) -> dict:
     return _as_tensors(state_dict_to_flax(sd, model))
 
 
-def _write(path: str, payload: dict, meta: dict) -> None:
+def write_checkpoint(path: str, payload: dict, meta: dict) -> None:
+    """Write `payload` (state.pt) and `meta` (meta.json) into the
+    directory `path`."""
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, _STATE + '.tmp')
     torch.save(payload, tmp)
@@ -164,7 +171,7 @@ def write_train_ckpt(path: str, snap: dict, cur_epoch: int,
         payload[key] = _flax(snap[key], model)
     if kind != 'sgd':
         payload['adam_step'] = snap['adam_step']
-    _write(path, payload, {'cur_epoch': cur_epoch,
+    write_checkpoint(path, payload, {'cur_epoch': cur_epoch,
                            'best_score': float(best_score), 'kind': 'train',
                            'optimizer': kind})
 
@@ -175,9 +182,17 @@ def write_best_ckpt(path: str, snap: dict, cur_epoch: int,
     base_trainer.py:155,161-162), from a `snapshot_state` (any thread)."""
     if snap['ready'] is not None:
         snap['ready'].synchronize()
-    _write(path, {'variables': _flax(snap['ema_variables'], snap['model'])},
-           {'cur_epoch': cur_epoch, 'best_score': float(best_score),
-            'kind': 'best'})
+    save_weights_ckpt(path, _flax(snap['ema_variables'], snap['model']),
+                      cur_epoch=cur_epoch, best_score=float(best_score))
+
+
+def save_weights_ckpt(path: str, variables: Mapping, **meta) -> None:
+    """A weights-only ("best") checkpoint of Flax-path `variables`
+    ({'params', 'batch_stats'}, numpy arrays or tensors) with `meta` in
+    its meta.json beside kind 'best' (the counterpart of
+    rtseg_tpu/train/checkpoint.py:save_weights_ckpt)."""
+    write_checkpoint(path, {'variables': _as_tensors(variables)},
+                     {'kind': 'best', **meta})
 
 
 def save_train_ckpt(path: str, state: TrainState, cur_epoch: int,
@@ -204,9 +219,10 @@ def _read(path: str) -> dict:
     if not os.path.exists(file):
         raise FileNotFoundError(
             f'{path} has a {_META} but no {_STATE}: it is not a checkpoint '
-            f'of the PyTorch port (reading the JAX package\'s orbax '
-            f'checkpoints is queued, ROADMAP.md Queue 1, "Trainer, checkpoint '
-            f'and data")')
+            f'of the PyTorch port. A JAX package checkpoint (orbax) is read '
+            f'on a machine with orbax installed: convert it with '
+            f'`python tools/orbax_to_torch.py --src {path} --dst OUT '
+            f'--optimizer_type ...` and load OUT')
     return torch.load(file, map_location='cpu', weights_only=True)
 
 
@@ -244,3 +260,82 @@ def restore_train_ckpt(path: str, state: TrainState) -> Tuple[int, float]:
 def restore_weights(path: str, model: torch.nn.Module) -> None:
     """Weights-only load of any checkpoint into `model`."""
     load_jax_variables(model, _read(path)['variables'])
+
+
+# --------------------------------------------------- the JAX package's trees
+
+def _find(tree, want) -> list:
+    """Every dict in `tree` (nested dicts and lists, as orbax restores a
+    tree without a template) that holds all the keys of `want`."""
+    found = []
+    if isinstance(tree, Mapping):
+        if all(k in tree for k in want):
+            found.append(tree)
+        for v in tree.values():
+            found += _find(v, want)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            found += _find(v, want)
+    return found
+
+
+def _jax_optimizer(opt_state) -> str:
+    """'sgd', 'adam' or 'adamw' from the structure of an optax state of
+    rtseg_tpu/train/optim.py:get_optimizer: SGD's chain holds a `trace`;
+    Adam and AdamW a `mu`/`nu` pair, AdamW with a `weight_decay`
+    hyperparameter under inject_hyperparams (OneCycle) or a third chain
+    element (add_decayed_weights) without it."""
+    if _find(opt_state, ('trace',)):
+        return 'sgd'
+    if not _find(opt_state, ('mu', 'nu')):
+        raise ValueError('the checkpoint\'s opt_state holds neither an SGD '
+                         'trace nor Adam moments')
+    hyper = _find(opt_state, ('hyperparams', 'inner_state'))
+    if hyper:
+        return 'adamw' if 'weight_decay' in hyper[0]['hyperparams'] \
+            else 'adam'
+    chain = opt_state if isinstance(opt_state, (list, tuple)) else []
+    return 'adamw' if len(chain) == 3 else 'adam'
+
+
+def _variables(tree, prefix: str = '') -> dict:
+    return {'params': tree[prefix + 'params'],
+            'batch_stats': tree.get(prefix + 'batch_stats') or {}}
+
+
+def from_orbax_tree(tree: Mapping, meta: Optional[Mapping],
+                    optimizer_type: Optional[str]) -> Tuple[dict, dict]:
+    """(payload, meta) of this package's checkpoint from the tree of a JAX
+    package checkpoint (rtseg_tpu/train/checkpoint.py) restored by orbax
+    without a template, and its meta.json. numpy and torch only.
+
+    A train checkpoint ("last"): params/batch_stats -> variables, ema_* ->
+    ema_variables, step; SGD's optax `trace` -> momentum; Adam's and
+    AdamW's `mu`/`nu`/`count` -> exp_avg/exp_avg_sq/adam_step (through
+    the inject_hyperparams wrapper of OneCycle runs). The optimizer is read
+    from the tree's structure and must be `optimizer_type`. meta.json is
+    copied with `optimizer` added. A weights checkpoint ("best", or the
+    JAX reference import) maps its weights alone."""
+    meta = dict(meta or {})
+    if meta.get('kind', 'train') != 'train' or 'opt_state' not in tree:
+        return {'variables': _as_tensors(_variables(tree))}, meta
+    found = _jax_optimizer(tree['opt_state'])
+    if optimizer_type is None:
+        raise ValueError(f'a train checkpoint holds optimizer state: name '
+                         f'its optimizer_type (this one holds {found!r})')
+    if found != optimizer_type:
+        raise ValueError(f'the checkpoint holds the state of optimizer '
+                         f'{found!r}, not {optimizer_type!r}')
+    payload = {'step': int(np.asarray(tree['step'])),
+               'variables': _as_tensors(_variables(tree)),
+               'ema_variables': _as_tensors(_variables(tree, 'ema_'))}
+    if found == 'sgd':
+        payload['momentum'] = _as_tensors(
+            {'params': _find(tree['opt_state'], ('trace',))[0]['trace']})
+    else:
+        adam = _find(tree['opt_state'], ('mu', 'nu', 'count'))[0]
+        payload['exp_avg'] = _as_tensors({'params': adam['mu']})
+        payload['exp_avg_sq'] = _as_tensors({'params': adam['nu']})
+        payload['adam_step'] = int(np.asarray(adam['count']))
+    meta['optimizer'] = found
+    return payload, meta

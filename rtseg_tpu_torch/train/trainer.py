@@ -418,7 +418,7 @@ class SegTrainer:
 
         The images go through the serving engine and pipeline
         (rtseg_tpu_torch/serve/), bucketed by their exact post-transform
-        shape, read from the PNG headers alone: one CUDA graph a shape at
+        shape, read from the image headers alone: one CUDA graph a shape at
         batch test_bs, batches padded in the batch dimension only, which
         leaves each mask what a one-image batch gives. A sliding window
         keeps at most max(2 * batch, 8) images resident and writes the

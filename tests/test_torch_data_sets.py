@@ -2,8 +2,11 @@
 {protocol,cityscapes,custom}.py) against the JAX package's, on PNG trees
 the tests write: the same files in the same order, and `get(i, rng)`,
 `prepare` and `augment_raw` bit-equal with the same rng; the data.yaml
-reader against yaml.safe_load; a Custom set with a JPEG raises the
-refusal naming its ROADMAP.md item."""
+reader against yaml.safe_load; a Custom set takes every file in imgs/,
+as the JAX package does, and a truncated JPEG among them raises when it
+is read."""
+
+import os
 
 import numpy as np
 import pytest
@@ -101,12 +104,17 @@ def test_data_yaml_reader_raises_on_other_constructs(text):
 
 
 def test_custom_jpeg_raises_the_refusal(tmp_path):
+    """A JPEG in imgs/ is an image of the set (JPEGs are decoded since
+    the port has a JPEG decoder); one cut short raises ValueError when it
+    is read, as PIL raises without LOAD_TRUNCATED_IMAGES."""
     root = custom_tree(tmp_path / 'custom', n_train=2, n_val=1)
     (tmp_path / 'custom' / 'train' / 'imgs' / '9.jpg').write_bytes(
         b'\xff\xd8\xff\xe0' + bytes(16))
     cfg = SegConfig(dataset='custom', data_root=root).resolve()
-    with pytest.raises(NotImplementedError,
-                       match=r'9\.jpg.*ROADMAP\.md Queue 1, "Trainer, '
-                             r'checkpoint and data"'):
-        Custom(cfg, 'train')
+    ds = Custom(cfg, 'train')
+    assert [os.path.basename(p) for p in ds.images] == ['0.png', '1.png',
+                                                        '9.jpg']
+    assert ds.masks[2].endswith(os.path.join('masks', '9.png'))
+    with pytest.raises(ValueError, match='truncated|corrupt'):
+        ds.prepare(2)
     Custom(cfg, 'val')                   # the val split has no JPEG

@@ -262,7 +262,12 @@ def _message(fn):
 def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     """The refusals that send the reader to ROADMAP.md name the Queue 1
     item by its title (a renumbering cannot make them stale), and each
-    title is an item of ROADMAP.md's Queue 1."""
+    title is an item of ROADMAP.md's Queue 1. What "Trainer, checkpoint
+    and data" refused works since: a Custom set and a test folder of
+    JPEGs load, a JPEG body cut short raises ValueError as PIL does, and
+    an orbax directory's refusal names the bridge that converts it."""
+    import io
+    from PIL import Image
     from rtseg_tpu_torch.data import get_loader
     from rtseg_tpu_torch.train import trainer as tr
     from rtseg_tpu_torch.train.checkpoint import restore_weights
@@ -270,23 +275,30 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     from torch_data_trees import custom_tree
     (tmp_path / 'orbax').mkdir()
     (tmp_path / 'orbax' / 'meta.json').write_text('{}')
-    # a Custom set with JPEGs in both splits: the port has no JPEG decoder
+    orbax = _message(lambda: restore_weights(str(tmp_path / 'orbax'),
+                                             torch.nn.Linear(1, 1)))
+    assert 'tools/orbax_to_torch.py' in orbax \
+        and 'ROADMAP.md Queue 1' not in orbax, orbax
+    # a Custom set with a JPEG in both splits
     jpeg_tree = custom_tree(tmp_path / 'custom', n_train=1, n_val=1)
+    from rtseg_tpu_torch.data import png
     for split in ('train', 'val'):
+        buf = io.BytesIO()
+        Image.fromarray(np.full((40, 50, 3), 90, np.uint8)).save(buf,
+                                                                  'JPEG')
         (tmp_path / 'custom' / split / 'imgs' / '1.jpg').write_bytes(
-            b'\xff\xd8\xff\xe0')
-    messages = [
-        _message(lambda: restore_weights(str(tmp_path / 'orbax'),
-                                         torch.nn.Linear(1, 1))),
-        _message(lambda: get_loader(SegConfig(dataset='custom',
-                                              data_root=jpeg_tree))),
-        _message(lambda: Custom(SegConfig(dataset='custom',
-                                          data_root=jpeg_tree), 'val')),
-    ]
+            buf.getvalue())
+        (tmp_path / 'custom' / split / 'masks' / '1.png').write_bytes(
+            png.encode(np.zeros((40, 50), np.uint8)))
+    cfg = SegConfig(dataset='custom', data_root=jpeg_tree, train_bs=1)
+    train, val = get_loader(cfg)
+    assert len(train.dataset) == len(val.dataset) == 2
+    assert Custom(SegConfig(dataset='custom', data_root=jpeg_tree),
+                  'val').images[-1].endswith('1.jpg')
+    messages = []
     messages.append(_message(lambda: SegTrainer(
         SegConfig(spatial_partition=2), device='cpu')))
     # is_testing is ported: the trainer builds for prediction alone
-    from rtseg_tpu_torch.data import png
     from rtseg_tpu_torch.serve import ServeEngine, make_preprocess
     (tmp_path / 'test_imgs').mkdir()
     (tmp_path / 'test_imgs' / 'a.png').write_bytes(
@@ -297,15 +309,19 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
                    device='cpu')
     assert len(t.test_set) == 1 and not t.predict_model.training
     assert not hasattr(t, 'train_loader')
-    # the serving slice's refusals
-    messages += [
-        _message(lambda: ServeEngine.from_artifact('model.stablehlo')),
-        _message(lambda: make_preprocess(SegConfig())(b'\xff\xd8\xff')),
-        _message(lambda: SegTrainer(SegConfig(
-            is_testing=True, test_data_folder=str(tmp_path / 'custom' /
-                                                  'val' / 'imgs')),
-            device='cpu')),
-    ]
+    # and on a folder with a JPEG
+    t = SegTrainer(SegConfig(is_testing=True, model='fastscnn', num_class=3,
+                             test_data_folder=str(tmp_path / 'custom' /
+                                                  'val' / 'imgs'),
+                             load_ckpt=False,
+                             save_dir=str(tmp_path / 'predict')),
+                   device='cpu')
+    assert t.test_set.img_names == ['0.png', '1.jpg']
+    # the serving slice's refusals; a JPEG body cut short raises as PIL
+    with pytest.raises(ValueError, match='truncated'):
+        make_preprocess(SegConfig())(b'\xff\xd8\xff')
+    messages.append(
+        _message(lambda: ServeEngine.from_artifact('model.stablehlo')))
     for flag, _, _, _ in tr._NOT_PORTED:
         t = SegTrainer.__new__(SegTrainer)
         t.config = SegConfig(**{'use_tb': False, 'use_obs': False,
@@ -320,8 +336,7 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
         found = re.findall(r'ROADMAP\.md Queue 1, "([^"]+)"', text)
         assert len(found) == 1, text
         titles.add(found[0])
-    assert titles == {'Trainer, checkpoint and data', 'The planes',
-                      'Data parallel'}
+    assert titles == {'The planes', 'Data parallel'}
     for title in titles:
         assert re.search(r'^\d+\. (~~)?\*\*' + re.escape(title), queue1,
                          re.M), title

@@ -8,9 +8,10 @@ which the port reads from a checkpoint of its own made from that tree.
 Tolerance: the decoded mask PNGs equal the JAX files at every pixel whose
 top-2 gap in the JAX float32 logits is at least 1e-4; the blend PNGs at
 every raw pixel whose NEAREST source pixel is such a pixel. Also: a
-missing checkpoint raises FileNotFoundError, a JPEG in the folder raises
-naming the JPEG decoder's ROADMAP.md item, and the trainer builds for
-prediction alone (no loaders, no optimizer)."""
+missing checkpoint raises FileNotFoundError, a JPEG in the folder is
+predicted like a PNG (its mask file named after it, with .png) while a
+GIF raises NotImplementedError, and the trainer builds for prediction
+alone (no loaders, no optimizer)."""
 
 import os
 
@@ -155,13 +156,24 @@ def test_a_missing_checkpoint_raises(tmp_path):
 
 
 def test_a_jpeg_in_the_folder_raises(tmp_path):
+    """Since the JPEG decoder: a JPEG is predicted like the PNGs (mask and
+    blend written under its base name); a GIF, which the port does not
+    decode, raises when the folder is opened."""
     folder = _write_folder(str(tmp_path / 'imgs'), SHAPES[:1])
+    Image.fromarray(np.random.default_rng(1).integers(
+        0, 256, (40, 56, 3), dtype=np.uint8)).save(
+        os.path.join(folder, 'photo.jpg'), quality=85)
+    argv = ['--device', 'cpu', '--is_testing', '--test_data_folder',
+            folder, '--save_dir', str(tmp_path / 's'), '--model',
+            'fastscnn', '--num_class', '5', '--compute_dtype', 'float32',
+            '--load_ckpt', 'false']
+    trainer, score = main_torch.main(argv)
+    assert score is None
+    for sub in ('predicts', 'predicts_blend'):
+        got = png.read(str(tmp_path / 's' / sub / 'photo.png'), 'RGB')
+        assert got.shape == (40, 56, 3)
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
-        os.path.join(folder, 'photo.jpg'))
+        os.path.join(folder, 'anim.gif'))
     with pytest.raises(NotImplementedError,
-                       match=r'photo\.jpg is not a PNG.*ROADMAP\.md Queue 1,'
-                             r' "Trainer, checkpoint and data"'):
-        main_torch.main(['--device', 'cpu', '--is_testing',
-                         '--test_data_folder', folder, '--save_dir',
-                         str(tmp_path / 's'), '--model', 'fastscnn',
-                         '--num_class', '5'])
+                       match=r'anim\.gif is neither a PNG nor a JPEG'):
+        main_torch.main(argv)

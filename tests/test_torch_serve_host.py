@@ -116,13 +116,24 @@ def test_test_folder_equals_jax(tmp_path, scale):
 
 
 def test_test_folder_refuses_a_jpeg_and_a_missing_folder(tmp_path):
+    """A JPEG is read since the port decodes JPEGs (the same image and
+    shape as the JAX TestFolder's); a GIF and a missing folder raise."""
     folder = _folder(tmp_path, [(16, 16)])
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+    Image.fromarray(np.random.default_rng(2).integers(
+        0, 256, (8, 8, 3), dtype=np.uint8)).save(
         os.path.join(folder, 'b.jpg'))
     cfg = SegConfig(is_testing=True, test_data_folder=folder)
+    ours = get_test_loader(cfg)
+    theirs = JaxTestFolder(JaxSegConfig(is_testing=True,
+                                        test_data_folder=folder))
+    assert ours.img_names == theirs.img_names == ['00_img.png', 'b.jpg']
+    assert ours.shape(1) == theirs.shape(1) == (8, 8)
+    for a, b in zip(ours.get(1)[:2], theirs.get(1)[:2]):
+        assert np.array_equal(a, b)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+        os.path.join(folder, 'c.gif'))
     with pytest.raises(NotImplementedError,
-                       match=r'b\.jpg is not a PNG.*ROADMAP\.md Queue 1, '
-                             r'"Trainer, checkpoint and data"'):
+                       match=r'c\.gif is neither a PNG nor a JPEG'):
         get_test_loader(cfg)
     with pytest.raises(RuntimeError, match='does not exist'):
         get_test_loader(SegConfig(is_testing=True,

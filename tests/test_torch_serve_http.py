@@ -2,8 +2,8 @@
 (FastSCNN, 5 classes, float32, Flax's initializers): mixed shapes end to
 end, each mask equal to the engine's on the request alone; the server on
 localhost (/predict as a colormapped PNG and ?raw=1, /healthz, /stats,
-/metrics, 413 for an image no bucket fits, 500 naming the JPEG decoder's
-ROADMAP.md item for a body that is not a PNG, /debug/profile answering
+/metrics, 413 for an image no bucket fits, 500 saying why for a JPEG body
+cut short and for a body of another format, /debug/profile answering
 501, /debug/flight, the drain); the open-loop bench and its gate; and
 `tools/torch_segserve.py bench --check --device cpu` as a subprocess."""
 
@@ -163,8 +163,10 @@ def test_http_errors_and_refusals(server):
     assert code == 413 and b'no bucket fits 64x64' in data
     code, _, data = _post(url + '/predict', b'\xff\xd8\xff\xe0 not a png')
     assert code == 500
-    assert 'ROADMAP.md Queue 1, "Trainer, checkpoint and data"' in \
-        json.loads(data)['error']
+    assert 'ValueError: image file is truncated' in json.loads(data)['error']
+    code, _, data = _post(url + '/predict', b'GIF89a not a png')
+    assert code == 500
+    assert 'neither a PNG nor a JPEG' in json.loads(data)['error']
     code, _, data = _post(url + '/debug/profile?ms=50', b'')
     assert code == 501 and '"The planes"' in json.loads(data)['error']
     assert _post(url + '/predict', b'')[0] == 400
