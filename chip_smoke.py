@@ -172,15 +172,38 @@ Phases (each prints its own lines; any failure exits non-zero):
      tools/torch_import_reference.py on a {'state_dict'} .pth of a
      seeded FastSCNN, the imported model's eval logits at 1024x2048
      within 1e-4 of the source's; K1/K2 counts unchanged by (c) and (d)
-  12. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
-     {"import": ...}, {"main": ...}, {"serve": ...} and {"jpeg": ...}
-     lines, and the {"kernels": [...]} line, whose launch counts are
-     those of the eval slice (phase 4), the train run (phase 5), the
-     zoo's runs (phase 6), the KD runs (phase 6b), the optimizer tail's
-     runs and eval step (phase 6c), phase 9's runs and phase 11's
-     together, checked exactly against the counts they give: K1 102, K2
-     134 (phase 10 adds none);
-  13. the {"ok": true, ...} line.
+  12. data parallel (phase_ddp): (a) two gloo ranks (spawned processes)
+     sharing the card, BiSeNetv2 (aux, OHEM, SGD cos_warmup, EMA,
+     sync_bn): first a rank's bf16 step time on a resident batch of 8 at
+     512x1024 beside phase 5's one-process bs16 step and the gradient
+     bytes all-reduced a step (gloo stages them through the host: no
+     speed figure); 3 float32 steps of 2 x 2 distinct samples at 64x128
+     and peak LR 1e-3 (deterministic cuDNN) against one process at batch
+     4 on the card (first loss within 1e-5, losses and weights within
+     1e-3, the ranks' weights equal); then SegTrainer.run() in bf16 at
+     512x1024, 2 x bs8, 1 epoch of 3 steps with each rank's validations
+     through K1 and K2 (launches counted in each rank; K1 and K2 on its
+     EMA logits against their plain versions), the summed confusion
+     matrix bit-equal to one process's validate of the ranks' best.ckpt
+     at the per-call batch 8; (b), its first pair started once the ranks
+     have timed their steps: an NCCL world of one, `python -m
+     torch.distributed.run --standalone --nproc_per_node 1` running
+     main_torch.py for 2 epochs of 2 steps and a resume to 3, against
+     main_torch.py without a launcher, side by side, both as __main__
+     through a small file that first turns on cuDNN's deterministic
+     algorithms and turns TF32 off (DDP_RUN_MAIN): the same logged epoch
+     losses, last.ckpt and best.ckpt bit-equal, the launcher's run
+     logging its NCCL group; (c) every child's K1/K2 launches (each
+     reports its own in a file) added to the phase's;
+  13. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
+     {"import": ...}, {"main": ...}, {"serve": ...}, {"jpeg": ...} and
+     {"ddp": ...} lines, and the {"kernels": [...]} line, whose launch
+     counts are those of the eval slice (phase 4), the train run (phase
+     5), the zoo's runs (phase 6), the KD runs (phase 6b), the optimizer
+     tail's runs and eval step (phase 6c), phase 9's runs, phase 11's and
+     phase 12's together, checked exactly against the counts they give:
+     K1 118, K2 150 (phase 10 adds none);
+  14. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -850,11 +873,13 @@ def _profile_step(step, state, imgs, msks, n: int = 2, label='train'):
             'top': [[k, t, c] for t, c, k in ops[:12]]}
 
 
-def _step_times(trainer, cfg, imgs, msks, iters: int = 5, warmup: int = 2):
+def _step_times(trainer, cfg, imgs, msks, iters: int = 5, warmup: int = 2,
+                split: bool = True):
     """The train step on a resident batch: its ms (mean of `iters` after
     `warmup`), the split (forward+loss, backward, optimizer+EMA; one event
-    each, after a synchronise; mean of `iters` after `warmup`), the peak
-    memory of a step and the memory allocated before it."""
+    each, after a synchronise; mean of `iters` after `warmup`; None
+    without `split`), the peak memory of a step and the memory allocated
+    before it."""
     from rtseg_tpu_torch.nn import DropoutMasks, bind_dropout
     from rtseg_tpu_torch.train.optim import set_hparams
     from rtseg_tpu_torch.train.state import ema_update
@@ -870,6 +895,8 @@ def _step_times(trainer, cfg, imgs, msks, iters: int = 5, warmup: int = 2):
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(lambda: step(st, imgs, msks), iters=iters, warmup=0)
     peak = torch.cuda.max_memory_allocated()
+    if not split:
+        return step_ms, None, peak, before
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     parts = np.zeros(3)
     for i in range(iters + warmup):
@@ -1147,7 +1174,11 @@ PROFILED = ('smp FPN MiT-b2',)
 
 # the timed train and eval steps a zoo model, each after one warm-up
 # step (the flagship's phases time 5 after 2): the zoo's depth, cut so
-# that the script keeps within its time limit (3 in PR 13, 5 before)
+# that the script keeps within its time limit (earlier 3, and 5 before).
+# The train step's warm-up is the step that checks its
+# metrics, and only the models of PROFILED time the split (forward+loss,
+# backward, optimizer+EMA: two more steps; the others' are in PERF.md
+# from their slices)
 ZOO_TIMED = 1
 
 
@@ -1358,6 +1389,15 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+        # where this model's seconds go (host clock)
+        t_mark, secs = t_model, {}
+
+        def lap(part):
+            nonlocal t_mark
+            now = time.perf_counter()
+            secs[part] = round(now - t_mark, 2)
+            t_mark = now
+        lap('run and its trainer')
         # K1 and K2 on the EMA model's deferred bf16 logits of the val batch
         imgs, msks = next(iter(trainer.val_loader))
         imgs, msks = imgs.to(dev), msks.to(dev)
@@ -1382,10 +1422,12 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         check(k2_equal, f'{name} K2 differs from its plain version')
         del low, preds
 
+        lap('K1/K2 checks')
         build = zoo_small_model(kw)
         variables = zoo_small_variables(kw, (build or get_model)(cfg))
         cpu_first, cpu_rel, cpu_abs = _zoo_card_vs_cpu(
             name, variables, kw, samples, build)
+        lap('card vs CPU')
 
         # times: the train step on a resident train batch
         trainer.train_loader.set_epoch(0)
@@ -1395,11 +1437,14 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         check(all(math.isfinite(float(v)) for v in metrics.values())
               and ('loss_detail' in metrics) == bool(cfg.use_detail_head),
               f'{name} train step metrics {metrics}')
+        # the check's step above was the warm-up
         step_ms, parts, peak, before = _step_times(
-            trainer, cfg, imgs, msks, iters=ZOO_TIMED, warmup=1)
+            trainer, cfg, imgs, msks, iters=ZOO_TIMED, warmup=0,
+            split=name in PROFILED)
         profile = _profile_step(trainer.train_step, trainer.state, imgs,
                                 msks, label=f'zoo {name} train') \
             if name in PROFILED else None
+        lap('train times')
         # the eval step at 1024x2048 and K1, K2 on the model's logits there
         step = build_eval_step(cfg, trainer.ema_model, dev)
         step(eval_imgs, eval_msks)
@@ -1431,23 +1476,28 @@ def phase_zoo(dev, card, eval_imgs, eval_msks):
         k1_text = (f'K1 {k1_ms:.4f} ms on {tuple(low.shape)}' if k1_ms
                    else f'no K1 (logits {tuple(low.shape)} at full size)')
         del low, preds
+        lap('eval times')
         say(f'zoo {name} times ({card}): train step on a resident batch '
-            f'{step_ms:.3f} ms = {B / step_ms * 1e3:.2f} imgs/s; split '
-            f'forward+loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, '
-            f'optimizer+EMA {parts[2]:.3f} ms; peak memory of a step '
+            f'{step_ms:.3f} ms = {B / step_ms * 1e3:.2f} imgs/s; '
+            + (f'split forward+loss {parts[0]:.3f} ms, backward '
+               f'{parts[1]:.3f} ms, optimizer+EMA {parts[2]:.3f} ms'
+               if parts is not None else 'split not timed (PROFILED)')
+            + f'; peak memory of a step '
             f'{peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB allocated '
             f'before it); run() {wall:.3f} s cold; eval step at {H}x{W} '
             f'{eval_ms:.3f} ms = {B / eval_ms * 1e3:.2f} imgs/s, peak '
             f'memory {eval_peak / 2**30:.3f} GiB; on its '
             f'logits {k1_text} (mismatch {rate:.3e} against the float32 '
             f'plain version), K2 {k2_ms:.4f} ms (bit-equal); this model\'s '
-            f'checks and times took {time.perf_counter() - t_model:.1f} s')
-        out[name] = {'step_ms': step_ms, 'parts_ms': parts.tolist(),
+            f'checks and times took {time.perf_counter() - t_model:.1f} s '
+            f'(host clock: {secs})')
+        out[name] = {'step_ms': step_ms,
+                     'parts_ms': None if parts is None else parts.tolist(),
                      'peak_bytes': peak, 'run_cold_s': wall,
                      'eval_ms': eval_ms, 'eval_peak_bytes': eval_peak,
                      'logits_stride': stride,
                      'k1_ms': k1_ms, 'k2_ms': k2_ms,
-                     'profile': profile,
+                     'profile': profile, 'seconds': secs,
                      'card_vs_cpu_first_loss': cpu_first,
                      'card_vs_cpu_loss': cpu_rel,
                      'card_vs_cpu_weights': cpu_abs,
@@ -3625,6 +3675,480 @@ def phase_jpeg(dev, card):
     return launches, out
 
 
+# ----------------------------------------------------------------- phase 12
+DDP_WORLD = 2                   # gloo ranks sharing the one card
+DDP_BS = B // DDP_WORLD          # a rank's batch of the flagship's 16
+DDP_TIMEOUT_S = 420.0           # a child's limit
+DDP_TIMED = 3                   # timed steps a rank, after one warm-up
+# the NCCL world of one: main_torch.py's command, 2 epochs of 2 steps of
+# 32 (synthetic_len 64) and a resume to 3
+DDP_MAIN = ['--dataset', 'synthetic', '--model', 'bisenetv2', '--use_aux',
+            '--num_class', str(C), '--crop_h', '256', '--crop_w', '512',
+            '--train_bs', '32', '--val_bs', '16', '--random_seed', '1',
+            '--use_tb', 'false', '--use_obs', 'false']
+# what (b)'s launchers start: main_torch.py run as __main__ (runpy) under
+# cuDNN's deterministic algorithms, without autotuning or TF32, so that
+# two runs give the same bits; then the process's K1/K2 launches go to a
+# file. argv: the repo's root, that file, main_torch.py's arguments
+DDP_RUN_MAIN = '''import json, os, runpy, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+root, counts = sys.argv[1:3]
+sys.path.insert(0, root)
+sys.argv = [os.path.join(root, 'main_torch.py'), *sys.argv[3:]]
+runpy.run_path(sys.argv[0], run_name='__main__')
+from rtseg_tpu_torch.ops.fused_head import resize_argmax
+from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
+with open(counts, 'w') as f:
+    json.dump({'resize_argmax': resize_argmax.launches,
+               'confusion_matrix': confusion_matrix_pallas.launches}, f)
+'''
+
+
+def _ddp_run_config(save_dir, sizes, **kw):
+    """(a)'s bf16 run: the flagship's train config cut to a rank's batch
+    of `sizes` (bs, crop h, crop w; 3 steps of the global batch)."""
+    bs, ch, cw = sizes
+    return _train_config(save_dir, train_bs=bs, val_bs=bs, crop_h=ch,
+                         crop_w=cw, synthetic_len=3 * bs * DDP_WORLD,
+                         total_epoch=1, base_lr=0.01 / DDP_WORLD, **kw)
+
+
+# the float32 check's peak LR, the zoo's (zoo_small_config): at phase
+# 5's 1e-2 the card's float32 rounding (cuDNN picks other algorithms for
+# a batch of 2 than of 4) grows 2e-6 -> 3e-4 -> 6e-3 over the 3 steps in
+# the weights of 2 ranks against one process (measured on H100 cards)
+DDP_SMALL_LR = 1e-3
+
+
+def _ddp_small(**kw):
+    """The float32 card check's config (phase 5's `_card_vs_cpu_runs`,
+    at DDP_SMALL_LR): 3 steps of 4 distinct synthetic samples at 64x128,
+    here 2 a rank."""
+    return _train_config(_unused_dir(), crop_h=64, crop_w=128,
+                         synthetic_len=12, compute_dtype='float32',
+                         save_ckpt=False, load_ckpt=False, **kw)
+
+
+def _ddp_rank(rank, store, out, variables, save_dir, device, sizes):
+    """Phase 12 (a), one gloo rank on the card (a spawned process): its
+    bf16 step time at 512x1024 on a resident batch of its 8 (then the file
+    `out`.timed, after which the parent starts (b)), the float32 steps
+    (deterministic cuDNN) on its slice, then SegTrainer.run() in bf16 on
+    its slice of 16 with its validations through K1 and K2 (their launches
+    counted), K1 and K2 on its EMA model's logits against their plain
+    versions; writes what it found with torch.save."""
+    import traceback
+    import torch.distributed as dist
+    result = {}
+    try:
+        from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
+        from rtseg_tpu_torch.ops.pallas_metrics import (
+            confusion_matrix_pallas, confusion_matrix_plain)
+        from rtseg_tpu_torch.train import SegTrainer
+        from rtseg_tpu_torch.utils.convert import to_jax_variables
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(device)
+        card = dev.type == 'cuda'
+        if card:
+            torch.cuda.set_device(dev)
+        dist.init_process_group('gloo', init_method=f'file://{store}',
+                                rank=rank, world_size=DDP_WORLD)
+        # the step time first, while the ranks have the card to themselves
+        t = SegTrainer(_ddp_run_config(_unused_dir(), sizes, save_ckpt=False,
+                                       load_ckpt=False), device=dev)
+        t.train_loader.set_epoch(0)
+        imgs, msks = next(iter(t.train_loader))
+        imgs, msks = imgs.to(dev), msks.to(dev)
+        t.train_step(t.state, imgs, msks)
+        if card:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DDP_TIMED):
+            t.train_step(t.state, imgs, msks)
+        if card:
+            torch.cuda.synchronize()
+        result['step_ms'] = (time.perf_counter() - t0) / DDP_TIMED * 1e3
+        result['grad_bytes'] = sum(4 * p.numel()
+                                   for p in t.model.parameters())
+        dist.barrier()
+        del t, imgs, msks
+        Path(out + '.timed').touch()
+        old = _deterministic(True)
+        t = SegTrainer(_ddp_small(train_bs=2, val_bs=2,
+                                  base_lr=DDP_SMALL_LR / DDP_WORLD),
+                       device=dev, variables=variables)
+        t.train_loader.set_epoch(0)
+        losses = []
+        for imgs, msks in t.train_loader:
+            _, m = t.train_step(t.state, imgs.to(dev), msks.to(dev))
+            losses.append(float(m['loss']))
+        result['small'] = (losses, to_jax_variables(t.model),
+                           to_jax_variables(t.ema_model))
+        _deterministic(old)
+        del t
+        resize_argmax.launches = 0
+        confusion_matrix_pallas.launches = 0
+        cfg = _ddp_run_config(save_dir, sizes)
+        t = SegTrainer(cfg, device=dev)
+        t0 = time.perf_counter()
+        miou = t.run()
+        if card:
+            torch.cuda.synchronize()
+        result.update(run_s=time.perf_counter() - t0, miou=miou,
+                      losses=t.epoch_losses, cm=t.last_cm, step=t.state.step,
+                      gpu_num=cfg.gpu_num, lr=cfg.lr,
+                      launches={'resize_argmax': resize_argmax.launches,
+                                'confusion_matrix':
+                                    confusion_matrix_pallas.launches})
+        imgs, msks = next(iter(t.val_loader))
+        imgs, msks = imgs.to(dev), msks.to(dev)
+        with torch.inference_mode():
+            low = t.ema_model(imgs.to(torch.bfloat16),
+                              defer_upsample=True).contiguous()
+        preds = resize_argmax(low, sizes[1:])
+        result['k1_rate'] = _rate(preds, _argmax_ref(low.float(),
+                                                     sizes[1:]))
+        result['k2_equal'] = torch.equal(
+            confusion_matrix_pallas(preds, msks, C, IGNORE),
+            confusion_matrix_plain(preds, msks, C, IGNORE))
+    except Exception:
+        result = {'error': traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def _start_ranks(variables, tmp, device, sizes):
+    """Start the gloo ranks of (a) on `device`; (processes, their result
+    files, the save_dir of their run)."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    save_dir = os.path.join(tmp, 'ranks')
+    procs, outs = [], []
+    for r in range(DDP_WORLD):
+        outs.append(os.path.join(tmp, f'rank{r}.pt'))
+        procs.append(ctx.Process(target=_ddp_rank, args=(
+            r, os.path.join(tmp, 'store'), outs[-1], variables, save_dir,
+            device, sizes)))
+        procs[-1].start()
+    return procs, outs, save_dir
+
+
+def _until(done, procs, t0, what):
+    """Wait until done() or a process ends early or DDP_TIMEOUT_S from
+    t0 passes; fails on the latter two."""
+    while not done():
+        check(time.perf_counter() - t0 < DDP_TIMEOUT_S,
+              f'{what}: not within {DDP_TIMEOUT_S} s')
+        check(all(p.is_alive() for p in procs), f'{what}: a rank ended '
+              f'early (exit codes {[p.exitcode for p in procs]})')
+        time.sleep(0.1)
+
+
+def _join_ranks(procs, outs, t0):
+    """Wait for the ranks (DDP_TIMEOUT_S from t0); [each one's result]."""
+    for p in procs:
+        p.join(max(0.0, DDP_TIMEOUT_S - (time.perf_counter() - t0)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    check(not hung, f'ddp ranks {hung} did not end in {DDP_TIMEOUT_S} s')
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(os.path.exists(out), f'ddp rank {r} exited {p.exitcode} '
+              f'with no result')
+        res = torch.load(out, weights_only=False)
+        check('error' not in res, f'ddp rank {r} failed:\n'
+              f'{res.get("error")}')
+        results.append(res)
+    return results
+
+
+_LAUNCHERS = {'torchrun': [sys.executable, '-m', 'torch.distributed.run',
+                           '--standalone', '--nproc_per_node', '1'],
+              'plain': [sys.executable]}
+
+
+def _start_pair(tmp, extra, total):
+    """The NCCL world of one (torchrun) and the run without a launcher of
+    main_torch.py to `total` epochs (through DDP_RUN_MAIN), started side
+    by side; {launcher: (process, its log, its save_dir, (its watcher,
+    its wall))}, each watcher a thread that notes the process's seconds
+    from its start in its wall's 's'."""
+    root = Path(__file__).resolve().parent
+    run_main = os.path.join(tmp, 'run_main.py')
+    with open(run_main, 'w') as f:
+        f.write(DDP_RUN_MAIN)
+    procs = {}
+    for k, launcher in _LAUNCHERS.items():
+        save_dir = os.path.join(tmp, k)
+        cmd = [*launcher, run_main, str(root), _counts_file(tmp, k, total),
+               *DDP_MAIN, *extra, '--total_epoch', str(total),
+               '--save_dir', save_dir]
+        log = open(os.path.join(tmp, f'{k}_{total}.out'), 'w')
+        proc = subprocess.Popen(cmd, cwd=str(root), stdout=log,
+                                stderr=subprocess.STDOUT)
+
+        wall = {'s': math.inf}
+
+        def watch(proc=proc, wall=wall, t0=time.perf_counter()):
+            proc.wait()
+            wall['s'] = time.perf_counter() - t0
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        procs[k] = (proc, log, save_dir, (watcher, wall))
+    return procs
+
+
+def _wait_pair(procs, total, t0):
+    """Wait for a pair (DDP_TIMEOUT_S from `t0`), stop what outlives it,
+    fail on an exit code other than 0; {launcher: its wall s}."""
+    for proc, _, _, (watcher, _) in procs.values():
+        watcher.join(max(0.0, DDP_TIMEOUT_S - (time.perf_counter() - t0)))
+    for k, (proc, log, _, (watcher, _)) in procs.items():
+        if proc.poll() is None:
+            # the launcher passes SIGTERM on to its worker
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        rc = proc.wait()
+        watcher.join()
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                tail = f.read()[-3000:]
+            check(False, f'main_torch.py ({k}, total_epoch {total}) '
+                  f'exited {rc}:\n{tail}')
+    return {k: wall['s'] for k, (_, _, _, (_, wall)) in procs.items()}
+
+
+def _counts_file(tmp, launcher, total):
+    return os.path.join(tmp, f'{launcher}_{total}.launches.json')
+
+
+def _read_run(tmp, launcher, save_dir, totals):
+    """(epoch-loss lines, data-parallel lines) of a run's seg_trainer.log,
+    and the K1/K2 launches its processes (one a total of `totals`)
+    reported, added."""
+    with open(os.path.join(save_dir, 'seg_trainer.log')) as f:
+        lines = f.read().splitlines()
+    losses = [ln.split(' | ', 2)[2] for ln in lines
+              if re.search(r'\| Epoch:\d+/\d+ \| Loss:', ln)]
+    group = [ln.split(' | ', 2)[2] for ln in lines if 'Data parallel:' in ln]
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    for total in totals:
+        with open(_counts_file(tmp, launcher, total)) as f:
+            for k, v in json.load(f).items():
+                launches[k] += v
+    return losses, launches, group
+
+
+def _same_files(a, b, name):
+    """Whether checkpoint `name` of two save_dirs holds the same meta and
+    the same tensors, bit for bit."""
+    pa, pb = (os.path.join(d, name) for d in (a, b))
+    with open(os.path.join(pa, 'meta.json')) as f:
+        meta_a = json.load(f)
+    with open(os.path.join(pb, 'meta.json')) as f:
+        meta_b = json.load(f)
+    sa, sb = (torch.load(os.path.join(p, 'state.pt'), weights_only=True)
+              for p in (pa, pb))
+
+    def equal(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return x == y
+    return meta_a == meta_b and equal(sa, sb)
+
+
+def phase_ddp(dev, card, one_rank_step_ms):
+    """Phase 12, data parallel on the one card: (a) two gloo ranks
+    (spawned) against one process; (b) an NCCL world of one under
+    torch.distributed.run against main_torch.py without a launcher; (c)
+    every child's K1/K2 launches, added to the phase's."""
+    from rtseg_tpu_torch.models import get_model
+    from rtseg_tpu_torch.ops.fused_head import resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
+    from rtseg_tpu_torch.train import SegTrainer
+    from rtseg_tpu_torch.train.checkpoint import restore_weights
+    from rtseg_tpu_torch.utils.convert import random_jax_variables
+    card_run = dev.type == 'cuda'
+    if card_run:
+        torch.cuda.empty_cache()
+    device = 'cuda:0' if card_run else 'cpu'
+    sizes = (DDP_BS, TRAIN_H, TRAIN_W)
+    out = {}
+    launches = {'resize_argmax': 0, 'confusion_matrix': 0}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ddp_')
+    extra = [] if card_run else ['--device', 'cpu']
+    pair = None
+    try:
+        # (a) two gloo ranks sharing the card, against one process; once
+        # the ranks have timed their step, (b)'s first pair runs beside
+        # them (the phase's wall is mostly processes starting)
+        variables = random_jax_variables(get_model(_ddp_small()), seed=1)
+        t0 = time.perf_counter()
+        procs, outs, save_dir = _start_ranks(variables, tmp, device, sizes)
+        _until(lambda: all(os.path.exists(o + '.timed') for o in outs),
+               procs, t0, 'the ranks\' timed steps')
+        t_pair = time.perf_counter()
+        pair = _start_pair(tmp, extra, 2)
+        ranks = _join_ranks(procs, outs, t0)
+        ranks_s = time.perf_counter() - t0
+        one = _card_vs_cpu_runs(variables, (dev.type,),
+                                base_lr=DDP_SMALL_LR)[dev.type]
+        want = [m['loss'] for m in one[0]]
+        got = [float(np.mean([r['small'][0][i] for r in ranks]))
+               for i in range(len(want))]
+        first = abs(got[0] - want[0]) / abs(want[0])
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        check(first <= 1e-5, f'ddp first loss {got[0]} vs {want[0]}')
+        check(rel <= 1e-3, f'ddp losses {got} vs {want}')
+        dw = max(max(_same_weights(r['small'][1], one[1], 1e-3),
+                     _same_weights(r['small'][2], one[2], 1e-3))
+                 for r in ranks)
+        apart = _same_weights(ranks[0]['small'][1], ranks[1]['small'][1])
+        say(f'ddp (a) small fp32, 2 gloo ranks x 2 samples on the card '
+            f'(deterministic cuDNN, sync_bn, peak LR {DDP_SMALL_LR}) vs one '
+            f'process x 4: losses '
+            f'{got} vs {want} (first {first:.2e}, tolerance 1e-5; largest '
+            f'{rel:.2e}, tolerance 1e-3); params+BN statistics and EMA '
+            f'differ by at most {dw[0]:.2e} ({dw[1]}), tolerance 1e-3; '
+            f'the ranks\' weights equal (largest difference {apart[0]})')
+        r0, r1 = ranks
+        for r in ranks:
+            check(r['step'] == 3 and r['gpu_num'] == DDP_WORLD,
+                  f'ddp run step {r["step"]}, gpu_num {r["gpu_num"]}')
+            check(all(math.isfinite(x) for x in r['losses'])
+                  and math.isfinite(r['miou']), f'ddp run {r["losses"]}')
+            check(r['k1_rate'] <= 1e-4 and r['k2_equal'],
+                  f'ddp rank K1 mismatch {r["k1_rate"]}, K2 equal '
+                  f'{r["k2_equal"]}')
+            # each rank's validation and val_best's: one val batch each
+            check(r['launches'] == {'resize_argmax': 2,
+                                    'confusion_matrix': 2},
+                  f'ddp rank launches {r["launches"]}')
+            for k, v in r['launches'].items():
+                launches[k] += v
+        check(r0['losses'] == r1['losses'] and r0['miou'] == r1['miou']
+              and np.array_equal(r0['cm'], r1['cm']),
+              'the ranks disagree on the run')
+        # one process validates the same best.ckpt at the per-call batch 8
+        ref = SegTrainer(_ddp_run_config(os.path.join(tmp, 'one'), sizes),
+                         device=dev)
+        restore_weights(os.path.join(save_dir, 'best.ckpt'), ref.ema_model)
+        before = (resize_argmax.launches, confusion_matrix_pallas.launches)
+        ref.validate()
+        one_launches = (resize_argmax.launches - before[0],
+                        confusion_matrix_pallas.launches - before[1])
+        check(one_launches == (2, 2), f'one-process validate launched '
+              f'{one_launches}')
+        launches['resize_argmax'] += one_launches[0]
+        launches['confusion_matrix'] += one_launches[1]
+        check(np.array_equal(ref.last_cm, r0['cm']),
+              'the ranks\' summed confusion matrix differs from one '
+              'process\'s validate of best.ckpt')
+        n_val = ref.config.val_num
+        check(int(r0['cm'].sum()) == n_val * TRAIN_H * TRAIN_W,
+              f'ddp cm counts {int(r0["cm"].sum())} pixels of {n_val} '
+              f'samples')
+        del ref
+        say(f'ddp (a) bf16 run(): 2 gloo ranks x bs{sizes[0]} at {TRAIN_H}x'
+            f'{TRAIN_W} (BiSeNetv2, aux, OHEM, SGD cos_warmup, EMA, '
+            f'sync_bn; LR {r0["lr"]} for gpu_num {r0["gpu_num"]}), 1 epoch '
+            f'of 3 steps: epoch loss {r0["losses"]}, val_best mIoU '
+            f'{r0["miou"]:.6f}, run() {r0["run_s"]:.2f} / {r1["run_s"]:.2f} '
+            f's; each rank K1 {r0["launches"]["resize_argmax"]} and K2 '
+            f'{r0["launches"]["confusion_matrix"]} launches, K1 mismatch '
+            f'{max(r["k1_rate"] for r in ranks):.2e} and K2 bit-equal on '
+            f'its EMA logits; the summed confusion matrix equals one '
+            f'process\'s validate of best.ckpt at the per-call batch '
+            f'{DDP_BS}, bit for bit; the ranks spawned, ran and ended in '
+            f'{ranks_s:.1f} s')
+        say(f'ddp (a) times ({card}): a rank\'s step on a resident batch of '
+            f'{DDP_BS} {r0["step_ms"]:.3f} / {r1["step_ms"]:.3f} ms with 2 '
+            f'ranks sharing the card, gradients all-reduced through gloo '
+            f'(host-staged): {r0["grad_bytes"]} bytes a step; one process '
+            f'at bs{B} (phase 5) {one_rank_step_ms:.3f} ms. Not a speed '
+            f'figure: both ranks run on one card')
+        out['gloo'] = {
+            'first_loss': first, 'loss': rel, 'weights': dw[0],
+            'losses': r0['losses'], 'miou': r0['miou'],
+            'run_s': [r['run_s'] for r in ranks], 'spawn_run_s': ranks_s,
+            'step_ms': [r['step_ms'] for r in ranks],
+            'one_process_step_ms': one_rank_step_ms,
+            'grad_bytes': r0['grad_bytes']}
+
+        # (b) an NCCL world of one against no launcher, side by side
+        walls = {k: [v] for k, v in _wait_pair(pair, 2, t_pair).items()}
+        t0 = time.perf_counter()
+        pair = _start_pair(tmp, extra, 3)
+        for k, v in _wait_pair(pair, 3, t0).items():
+            walls[k].append(v)
+        dirs = {k: d for k, (_, _, d, _) in pair.items()}
+        pair, pair_s = None, time.perf_counter() - t_pair
+        logs = {k: _read_run(tmp, k, d, (2, 3)) for k, d in dirs.items()}
+        (l_nccl, k_nccl, g_nccl), (l_plain, k_plain, g_plain) = (
+            logs['torchrun'], logs['plain'])
+        kind = 'nccl' if card_run else 'gloo'
+        check(len(g_nccl) == 2 and all(f'1 rank(s) over {kind}' in g
+                                       for g in g_nccl) and not g_plain,
+              f'data-parallel lines: torchrun {g_nccl}, plain {g_plain}')
+        check(len(l_nccl) == 3 and l_nccl == l_plain,
+              f'epoch losses: torchrun {l_nccl}, plain {l_plain}')
+        for name in ('last.ckpt', 'best.ckpt'):
+            check(_same_files(dirs['torchrun'], dirs['plain'], name),
+                  f'{name} of the NCCL world of one differs from the run '
+                  f'without a launcher')
+        # 2 validations and val_best's, then 1 and val_best's
+        check(k_nccl == k_plain == {'resize_argmax': 5,
+                                    'confusion_matrix': 5},
+              f'main_torch launches: torchrun {k_nccl}, plain {k_plain}')
+        for k in launches:
+            launches[k] += k_nccl[k] + k_plain[k]
+        say(f'ddp (b) python -m torch.distributed.run --standalone '
+            f'--nproc_per_node 1 main_torch.py (NCCL, one rank) and '
+            f'main_torch.py without a launcher, BiSeNetv2 bf16 bs32 at '
+            f'256x512 (deterministic cuDNN, no TF32), 2 epochs of 2 steps '
+            f'and a resume to 3: {g_nccl[0]!r}; epoch losses {l_nccl} in both; last.ckpt '
+            f'and best.ckpt equal bit for bit; K1/K2 launches {k_nccl} in '
+            f'each; walls torchrun {[round(w, 1) for w in walls["torchrun"]]}'
+            f' s, plain {[round(w, 1) for w in walls["plain"]]} s ('
+            f'{pair_s:.1f} s side by side, the first pair beside (a))')
+        out['nccl_one'] = {'losses': l_nccl, 'walls_s': walls,
+                           'launches': k_nccl}
+        out['launches'] = launches
+    finally:
+        if pair is not None:
+            for proc, log, _, _ in pair.values():
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+                log.close()
+        # the spawn context's resource tracker
+        from rtseg_tpu_torch.data.segpipe import shutdown
+        shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def _descendants() -> list:
     """(pid, command) of every live process this one started, directly or
     not, read from /proc."""
@@ -3688,9 +4212,11 @@ def main() -> int:
     elapsed('10 (serve)')
     jpeg_launches, jpeg = phase_jpeg(dev, card)
     elapsed('11 (JPEG, Custom and migration)')
+    ddp_launches, ddp = phase_ddp(dev, card, train['step_ms'])
+    elapsed('12 (data parallel)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
                 + optim_launches[k] + main_launches[k] + jpeg_launches[k]
-                for k, v in launches.items()}
+                + ddp_launches[k] for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
     # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits), 2 each
@@ -3702,7 +4228,10 @@ def main() -> int:
     want = {'resize_argmax': 15 + 2 * sum(s > 1 for _, _, s, _ in ZOO),
             'confusion_matrix': 15 + 2 * len(ZOO)}
     converge = 2 * (CONVERGE_HALF // 2 + 1) * 4
-    want = {k: v + 5 + 3 + converge + 5 for k, v in want.items()}
+    # phase 12: 2 for each gloo rank, 2 for the one-process validate of
+    # their best.ckpt, 5 for each main_torch.py run (torchrun and plain)
+    want = {k: v + 5 + 3 + converge + 5 + 2 * DDP_WORLD + 2 + 2 * 5
+            for k, v in want.items()}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
@@ -3717,6 +4246,7 @@ def main() -> int:
     say(json.dumps({'main': main_run}))
     say(json.dumps({'serve': serve}))
     say(json.dumps({'jpeg': jpeg}))
+    say(json.dumps({'ddp': ddp}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ training and evaluation of the JAX registry's 36 models and the smp hub
 (with knowledge distillation) on synthetic, Cityscapes and Custom data
 (config, data with segpipe and a PNG decoder, native host routines, ops,
 nn, models, losses, utils, train; main_torch.py at the repository's
-root), with the two TPU kernels of that path written in CUDA C++
+root), data parallel over torch.distributed (parallel/: one process a
+card), with the two TPU kernels of that path written in CUDA C++
 (ops/csrc/).
 """

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import warnings
 
+from ..parallel import process_count, process_index
 from .cityscapes import Cityscapes
 from .custom import Custom
 from .loader import ShardedLoader
@@ -25,13 +26,15 @@ def get_dataset(config):
     return cls(config, mode='train'), cls(config, mode='val')
 
 
-def _open_cache(dataset, config):
-    """Build or open the packed cache of one split; a dataset that cannot
-    be packed (synthetic has no cache_spec) takes the decode path with a
-    warning, as in the JAX package."""
+def _open_cache(dataset, config, pi: int, pc: int):
+    """Build or open the packed cache of one split (rank 0 builds, the
+    other ranks wait for its index); a dataset that cannot be packed
+    (synthetic has no cache_spec) takes the decode path with a warning,
+    as in the JAX package."""
     from .segpipe import CacheUnsupported, open_or_build
     try:
-        return open_or_build(dataset, config.cache_dir)
+        return open_or_build(dataset, config.cache_dir, process_index=pi,
+                             process_count=pc)
     except CacheUnsupported as e:
         warnings.warn(f'segpipe cache disabled for '
                       f'{type(dataset).__name__}: {e}', stacklevel=2)
@@ -48,7 +51,11 @@ def get_loader(config):
     (config.device_norm; None = on exactly where both splits' augment
     tails hand uint8 over exactly), resolved into
     config.device_norm_resolved, which tells the trainer to build its
-    steps with the loader's norm_coeffs."""
+    steps with the loader's norm_coeffs.
+
+    In a process group (parallel/mesh.py) each rank's loaders make only its
+    slice of every global batch (train_bs and val_bs are per rank), as the
+    JAX package's loaders make their process's slice."""
     train_ds, val_ds = get_dataset(config)
     global_train = config.train_bs * config.gpu_num
     global_val = config.val_bs * config.gpu_num
@@ -60,10 +67,11 @@ def get_loader(config):
     config.val_num = len(val_ds)
     config.resolve_schedule(config.train_num)
 
+    pc, pi = process_count(), process_index()
     train_cache = val_cache = None
     if config.segpipe_cache:
-        train_cache = _open_cache(train_ds, config)
-        val_cache = _open_cache(val_ds, config)
+        train_cache = _open_cache(train_ds, config, pi, pc)
+        val_cache = _open_cache(val_ds, config, pi, pc)
 
     raw = config.device_norm
     supported = (getattr(train_ds, 'supports_raw_tail', False)
@@ -80,11 +88,13 @@ def get_loader(config):
     train_loader = ShardedLoader(
         train_ds, global_train, seed=config.random_seed, shuffle=True,
         drop_last=True, ignore_index=config.ignore_index,
+        process_index=pi, process_count=pc,
         workers=config.base_workers, cache=train_cache, raw_tail=raw,
         emit_flags=True, mp_workers=config.aug_workers)
     val_loader = ShardedLoader(
         val_ds, global_val, seed=config.random_seed, shuffle=False,
         drop_last=False, ignore_index=config.ignore_index,
+        process_index=pi, process_count=pc,
         workers=config.base_workers, cache=val_cache, raw_tail=raw,
         emit_flags=False, mp_workers=config.aug_workers)
     return train_loader, val_loader

@@ -2,8 +2,9 @@
 ShardedLoader).
 
   * global batch = per-device batch x devices; each process makes only its
-    slice of every batch (the port runs one process: get_loader passes
-    process_index 0 of 1; an empty slice gets an all-ignored dummy batch);
+    contiguous slice of every batch (get_loader passes the process group's
+    rank and size, parallel/mesh.py; an empty slice of a ragged val tail
+    gets an all-ignored dummy batch, so every rank still runs the step);
   * the per-epoch reshuffle is np.random.default_rng((seed, epoch))
     .permutation(n), after set_epoch(epoch);
   * train batches drop the ragged tail; val batches pad it by repeating

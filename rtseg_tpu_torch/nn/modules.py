@@ -24,7 +24,7 @@ tests bind given masks.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -186,7 +186,8 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, running_mean: torch.Tensor,
                      running_var: torch.Tensor, eps: float = 1e-5,
                      momentum: float = 0.9,
-                     update_stats: bool = True) -> torch.Tensor:
+                     update_stats: bool = True,
+                     sync: Optional[Callable] = None) -> torch.Tensor:
     """Train-mode BatchNorm over NCHW `x`, as Flax computes it: float32
     (float64 for a float64 input) batch statistics E[x] and
     E[x^2] - E[x]^2 clipped at 0 (the biased variance), which both
@@ -194,14 +195,25 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
     statistics in place, ra = momentum * ra + (1 - momentum) * batch.
     Returns the input's type.
 
+    `sync`, where given, averages the stacked [E[x], E[x^2]] over the
+    ranks before the variance is formed, differentiably (data parallel
+    under config.sync_bn: parallel/mesh.py `all_reduce_mean_grad`), as
+    Flax's BatchNorm with an axis_name averages them with one lax.pmean:
+    the statistics of the global batch.
+
     nn.BatchNorm2d would update running_var with the unbiased variance
     (n / (n - 1) larger), which at the 1/32-resolution aux heads of a small
     batch (a few values a channel) moves the statistics by tens of
-    percent."""
+    percent; nn.SyncBatchNorm too, and its variance is Welford's."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = (0, 2, 3)
-    mean = xf.mean(dims)
-    var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+    if sync is None:
+        mean = xf.mean(dims)
+        mean2 = (xf * xf).mean(dims)
+    else:
+        mean, mean2 = sync(torch.stack([xf.mean(dims),
+                                        (xf * xf).mean(dims)])).unbind(0)
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
     if update_stats:
         with torch.no_grad():
             running_mean.mul_(momentum).add_(mean.detach() * (1.0 - momentum))
@@ -215,9 +227,13 @@ class BatchNorm(nn.Module):
     """BatchNorm2d, eps 1e-5, Flax momentum 0.9 (ema = 0.9*ema + 0.1*new).
     Eval uses the running statistics; training runs `batch_norm_train`,
     which leaves them as they are while `frozen_stats` is set (the
-    recompute of a rematerialized forward, `Recompute`)."""
+    recompute of a rematerialized forward, `Recompute`) and averages the
+    batch statistics over the ranks through `sync_stats` while one is
+    bound (`sync_batch_norm`: the train step under config.sync_bn in a
+    process group; eval never syncs)."""
 
     frozen_stats = False
+    sync_stats: Optional[Callable] = None
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -230,7 +246,27 @@ class BatchNorm(nn.Module):
         bn = self.bn
         return batch_norm_train(x, bn.weight, bn.bias, bn.running_mean,
                                 bn.running_var, bn.eps,
-                                update_stats=not self.frozen_stats)
+                                update_stats=not self.frozen_stats,
+                                sync=self.sync_stats)
+
+
+def batch_norms(model: nn.Module) -> List[BatchNorm]:
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+@contextmanager
+def sync_batch_norm(norms: Sequence[BatchNorm], sync: Callable):
+    """Bind `sync` (stacked statistics -> their average over the ranks) to
+    the BatchNorms `norms` for the block, the backward's recompute of a
+    rematerialized forward included: an attribute of each module, set and
+    restored, not a process-global switch."""
+    for m in norms:
+        m.sync_stats = sync
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sync_stats = None
 
 
 # ------------------------------------------------------------------ conv cores

@@ -10,7 +10,23 @@ without autograd, on the same compute-dtype images; its logits against
 the student's main logits, weighted by config.kd_loss_coefficient),
 backpropagates the loss into float32 gradients, writes the step's LR and
 momentum (SGD) or beta1 (Adam, AdamW) into the param group, updates, and
-moves the EMA model. One card: no gradient all-reduce.
+moves the EMA model.
+
+In a process group (data parallel, parallel/mesh.py) each rank runs the
+step on its slice of the global batch, and the step does what the JAX
+step does under shard_map: after the backward one all-reduce of every
+gradient through one flat float32 buffer, SUM then divided by the world
+size (the JAX step's `lax.pmean(grads)`), before the update; under
+config.sync_bn the BatchNorms average their batch statistics over the
+ranks in the forward and, through the all-reduce's backward, their
+gradients (nn/modules.py `sync_batch_norm`; a rematerialized forward's
+recompute syncs again, on the same inputs); without sync_bn each rank
+normalizes with its own statistics and the running statistics are
+averaged after the update. OHEM and the KD term stay per rank. The
+returned loss is the rank's own: the trainer averages it over the ranks
+where it reads it, not each step. With no group no collective is issued;
+a group of one rank gives the same bits as none (a sum over one rank is
+a copy, and the division by 1 is exact).
 
 With config.remat the model's training forward, and only it, runs under
 torch.utils.checkpoint (non-reentrant), as the JAX step wraps
@@ -28,11 +44,12 @@ float32 batches.
 
 The models with dropout (ENet, MiniNet) draw their keep masks from a
 torch.Generator on the batch's device that the step seeds from
-config.random_seed + 1 and the step number (`dropout_seed`), as the JAX
-step folds the step into PRNGKey(random_seed + 1): a resumed run draws the
-masks an uninterrupted one draws. The masks cannot equal the JAX
-package's (Flax folds the module path into a threefry key), so tests and
-the card-against-CPU check hand the step their own through
+config.random_seed + 1, the step number and the rank (`dropout_seed`), as
+the JAX step folds the step and the shard's index into
+PRNGKey(random_seed + 1): a resumed run draws the masks an uninterrupted
+one draws, and rank 0 draws those of one process. The masks cannot equal
+the JAX package's (Flax folds the module path into a threefry key), so
+tests and the card-against-CPU check hand the step their own through
 `dropout_masks`.
 
 Every parameter enters the update with a gradient, zero where autograd left
@@ -46,7 +63,8 @@ its final upsample deferred when the fused head is on, computes the int32
 predictions with the fused upsample+argmax (ops/fused_head.py, or a plain
 argmax over materialized logits when the fused head is off) and counts
 them into a (C, C) int32 confusion matrix (ops/pallas_metrics.py, or the
-plain bincount). One card: no cross-device reduction.
+plain bincount) of the rank's batch; SegTrainer.validate sums the ranks'
+matrices once, at the end.
 
 bf16 runs the way the JAX package runs it: bf16 activations, float32
 weights cast to bf16 per conv call, BatchNorm in float32 on float32
@@ -58,6 +76,7 @@ name rather than by the JAX package's rules.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -66,12 +85,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..losses import (get_detail_loss_fn, get_kd_loss_fn, get_loss_fn,
                       laplacian_pyramid)
-from ..nn.modules import (DropoutMasks, Recompute, bind_dropout,
-                          dropout_modules)
+from ..nn.modules import (DropoutMasks, Recompute, batch_norms,
+                          bind_dropout, dropout_modules, sync_batch_norm)
 from ..ops.augment import flip_norm, norm_table, normalize
 from ..ops.fused_head import resize_argmax
 from ..ops.pallas_metrics import confusion_matrix_pallas
 from ..ops.resize import resize_bilinear, resize_nearest
+from ..parallel import (all_reduce_mean_grad, average_, is_distributed,
+                        process_index)
 from ..utils.metrics import confusion_matrix
 from .optim import get_lr_schedule, optimizer_momentum, set_hparams
 from .state import TrainState, ema_mirror, ema_update
@@ -169,10 +190,20 @@ def _make_forward_loss(config, teacher=None) -> Callable:
     return forward_loss
 
 
-def dropout_seed(random_seed: int, step: int) -> int:
-    """The seed of step `step`'s dropout generator: random_seed + 1 and
-    the step, one 64-bit number."""
-    return (((int(random_seed) + 1) << 32) + int(step)) % (1 << 64)
+_GOLDEN64 = 0x9E3779B97F4A7C15       # 2^64 / the golden ratio, odd
+
+
+def dropout_seed(random_seed: int, step: int, rank: int = 0) -> int:
+    """The seed of step `step`'s dropout generator on rank `rank`:
+    random_seed + 1 and the step, one 64-bit number, plus the rank times
+    an odd 64-bit constant (rank 0 keeps the seed of one process)."""
+    return ((((int(random_seed) + 1) << 32) + int(step))
+            + int(rank) * _GOLDEN64) % (1 << 64)
+
+
+def _running_stats(norms) -> list:
+    return ([m.bn.running_mean for m in norms]
+            + [m.bn.running_var for m in norms])
 
 
 def build_train_step(config, norm_coeffs=None,
@@ -197,7 +228,8 @@ def build_train_step(config, norm_coeffs=None,
     lr_fn = get_lr_schedule(config)
     mom = optimizer_momentum(config)
     total_itrs = np.float32(max(int(config.total_itrs), 1))
-    drops = [None, []]    # the last model seen and its dropout modules
+    # the last model seen, its dropout modules and its BatchNorms
+    mods = [None, [], []]
     generators = {}       # device -> the step's dropout generator
     tables = {}           # device -> the normalize table of norm_coeffs
 
@@ -205,7 +237,8 @@ def build_train_step(config, norm_coeffs=None,
         g = generators.get(device)
         if g is None:
             g = generators[device] = torch.Generator(device=device)
-        g.manual_seed(dropout_seed(config.random_seed, step))
+        g.manual_seed(dropout_seed(config.random_seed, step,
+                                   process_index()))
         return DropoutMasks(g)
 
     def train_step(state: TrainState, images: torch.Tensor,
@@ -224,21 +257,33 @@ def build_train_step(config, norm_coeffs=None,
         set_hparams(state.optimizer, lr_fn(k),
                     mom(k) if callable(mom) else mom)
         state.optimizer.zero_grad(set_to_none=True)
-        if drops[0] is not model:
-            drops[:] = [model, dropout_modules(model)]
-        mods = drops[1]
-        if mods:
-            source = (dropout_masks(k) if dropout_masks is not None
-                      else drawn_masks(images.device, k))
-            with bind_dropout(model, source, mods):
+        if mods[0] is not model:
+            mods[:] = [model, dropout_modules(model), batch_norms(model)]
+        drops, norms = mods[1], mods[2]
+        group = is_distributed()
+        # synced statistics through the forward and the backward (where
+        # a rematerialized forward's recompute runs)
+        with (sync_batch_norm(norms, all_reduce_mean_grad)
+              if group and config.sync_bn else nullcontext()):
+            if drops:
+                source = (dropout_masks(k) if dropout_masks is not None
+                          else drawn_masks(images.device, k))
+                with bind_dropout(model, source, drops):
+                    loss, metrics = forward_loss(model, images, masks)
+            else:
                 loss, metrics = forward_loss(model, images, masks)
-        else:
-            loss, metrics = forward_loss(model, images, masks)
-        loss.backward()
-        for p in model.parameters():
+            loss.backward()
+        params = list(model.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group:
+            # the JAX step's one lax.pmean(grads)
+            average_([p.grad for p in params])
         state.optimizer.step()
+        if group and not config.sync_bn:
+            # replicated running statistics from per-rank normalization
+            average_(_running_stats(norms))
         state.step = k + 1
         if config.use_ema:
             # ramp decay (reference utils/model_ema.py:35-40)

@@ -45,6 +45,22 @@ loop, synchronously. Either way the steps see the same batches.
 `epoch_stats` holds each epoch's steps, wall time and the host time the
 loop spent waiting for batches (host clock).
 
+Data parallel (parallel/mesh.py): __init__ first opens the process group
+that config.multihost or a launcher's environment (torchrun) asks for, on
+the process's card (cuda:LOCAL_RANK unless the caller names a device),
+and resolves the config for the world size (gpu_num, the LR scaling and
+the schedule, as the JAX package's mesh size does). Each rank loads its
+slice of every global batch, the train step averages the gradients (and
+the BatchNorm statistics under sync_bn, train/step.py), the epoch's mean
+loss and the logged loss are averaged over the ranks where they are read,
+validation sums the ranks' confusion matrices once, at the end, so every
+rank reaches the same mIoU and best-checkpoint decision, and images/s are
+logged for the global batch. Rank 0 alone logs at INFO, writes
+config.json and the checkpoints; every rank reads a checkpoint only after
+rank 0's writer has joined and a barrier has passed (load_ckpt, val_best,
+the end of run()). Prediction runs in one process: is_testing in a world
+of more than one rank raises ValueError.
+
 Switches of the JAX trainer that the port does not implement raise
 NotImplementedError naming the ROADMAP.md Queue 1 item that brings them:
 spatial_partition > 1 when the trainer is built, use_tb, use_obs,
@@ -67,6 +83,9 @@ from ..data import get_loader, get_test_loader
 from ..data.segpipe import CardCopier, DevicePrefetcher
 from ..models.registry import get_model, get_teacher_model
 from ..obs import MetricsRegistry, set_registry
+from ..parallel import (all_reduce_mean, all_reduce_sum, backend, barrier,
+                        init_multihost, is_distributed, local_device,
+                        main_rank, process_count, process_index)
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
 from ..utils.misc import (get_logger, log_config, mkdir, save_config,
@@ -85,7 +104,7 @@ _INT32_MAX = np.iinfo(np.int32).max
 # (config.refuse_unported): those that change what the trainer builds,
 # refused by __init__, and the planes, refused by run()
 _NOT_BUILT = (('spatial_partition', lambda v: v > 1, 'the spatial mesh',
-               'Data parallel'),)
+               'Spatial mesh'),)
 _NOT_PORTED = (('use_tb', bool, 'TensorBoard logging', 'The planes'),
                ('use_obs', bool, 'segscope telemetry', 'The planes'),
                ('profile_dir', bool, 'the profiler trace', 'The planes'),
@@ -93,9 +112,10 @@ _NOT_PORTED = (('use_tb', bool, 'TensorBoard logging', 'The planes'),
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; it never means the CPU. The CPU is
+    """`None` means the process's CUDA card (parallel/mesh.py
+    local_device: cuda:LOCAL_RANK); it never means the CPU. The CPU is
     used only when the caller names it."""
-    device = torch.device('cuda' if device is None else device)
+    device = local_device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('SegTrainer: no CUDA device is available; pass '
                            "device='cpu' to run on the CPU")
@@ -127,15 +147,27 @@ class SegTrainer:
                  variables: Optional[Mapping] = None):
         refuse_unported(config, _NOT_BUILT)
         self.device = resolve_device(device)
-        config.resolve(num_devices=1)
+        init_multihost(config, self.device)
+        # the LR scaling and the schedule follow the world size
+        config.resolve(num_devices=process_count())
         self.config = config
-        self.logger = get_logger(config, main_rank=True)
+        self.main_rank = main_rank()
+        self.logger = get_logger(config, main_rank=self.main_rank)
+        if is_distributed():
+            self.logger.info(f'Data parallel: {process_count()} rank(s) '
+                             f'over {backend()}, rank {process_index()} on '
+                             f'{self.device}')
         mkdir(config.save_dir)
         set_seed(config.random_seed)
         # the live metrics registry: prediction's pipeline feeds it
         self.metrics = MetricsRegistry()
         set_registry(self.metrics)
         if config.is_testing:
+            if process_count() > 1:
+                raise ValueError(
+                    f'prediction (is_testing) runs in one process; this '
+                    f'one is rank {process_index()} of {process_count()}: '
+                    f'run it without a launcher')
             self.test_set = get_test_loader(config)
             self._init_state_for_predict()
             return
@@ -202,9 +234,16 @@ class SegTrainer:
         return teacher.eval()
 
     # ------------------------------------------------------------------ ckpt
+    def _settled(self) -> None:
+        """Rank 0's checkpoint writes on disk before any rank reads:
+        its writer joined, then a barrier (no collective without a
+        group)."""
+        self._ckpt_writer.join()
+        barrier()
+
     def load_ckpt(self) -> None:
         cfg = self.config
-        self._ckpt_writer.join()
+        self._settled()
         path = cfg.load_ckpt_path
         meta = load_meta(path) if cfg.load_ckpt and path else None
         if meta is None:
@@ -224,7 +263,7 @@ class SegTrainer:
         previous write and a device-side copy of the state; the writer
         thread reads the copy back and writes it."""
         cfg = self.config
-        if not cfg.save_ckpt:
+        if not cfg.save_ckpt or not self.main_rank:
             return
         # cfg.ckpt_name overrides the default name, as in the JAX package
         name = cfg.ckpt_name or ('best.ckpt' if best else 'last.ckpt')
@@ -266,8 +305,9 @@ class SegTrainer:
     def run(self) -> float:
         cfg = self.config
         refuse_unported(cfg, _NOT_PORTED)
-        save_config(cfg)
-        log_config(cfg, self.logger)
+        if self.main_rank:
+            save_config(cfg)
+            log_config(cfg, self.logger)
         start = time.perf_counter()
         try:
             for epoch in range(self.cur_epoch, cfg.total_epoch):
@@ -283,18 +323,23 @@ class SegTrainer:
                 self.save_ckpt(best=False)
             self.logger.info(
                 f'Training finished in {time.perf_counter() - start:.1f}s')
-            return self.val_best()
+            score = self.val_best()
         finally:
             # the last write lands, and a failed one raises, before run()
             # returns
             self._ckpt_writer.join()
+        # no rank returns before rank 0's checkpoints are on disk
+        barrier()
+        return score
 
     def train_one_epoch(self) -> None:
         """One pass over the train loader. The loss is summed on the device
         and read back once, at the end of the epoch; the progress line
         every log_interval steps reads the loss of the previous log point,
         copied to the host when it was taken, so no step waits for the
-        card."""
+        card. In a process group both are averaged over the ranks (once
+        an epoch and once a log point), and images/s count the global
+        batch."""
         cfg = self.config
         self.train_loader.set_epoch(self.cur_epoch)
         nb = len(self.train_loader)
@@ -319,16 +364,18 @@ class SegTrainer:
                     kd_sum = kd if kd_sum is None else kd_sum + kd
                 n_steps += 1
                 if cfg.log_interval > 0 and (i + 1) % cfg.log_interval == 0:
-                    li, ll = lag if lag is not None else (i, _HostScalar(loss))
+                    mean = _HostScalar(all_reduce_mean(loss))
+                    li, ll = lag if lag is not None else (i, mean)
                     now = time.perf_counter()
-                    ips = cfg.log_interval * cfg.train_bs / (now - t_log)
+                    ips = (cfg.log_interval * cfg.train_bs * cfg.gpu_num
+                           / (now - t_log))
                     t_log = now
                     self.logger.info(
                         f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
                         f'Iter:{li + 1}/{nb} | Loss:{ll.value():.4g} | '
                         f'{ips:.1f} imgs/s | data-wait '
                         f'{wait / (now - t_start):.0%} (host clock)')
-                    lag = (i, _HostScalar(loss))
+                    lag = (i, mean)
         finally:
             batches.close()
             self.model.eval()
@@ -336,13 +383,14 @@ class SegTrainer:
             raise RuntimeError(
                 'Training loader yielded no batches; the dataset is smaller '
                 'than the batch size.')
-        self.epoch_losses.append(float(loss_sum) / n_steps)
+        self.epoch_losses.append(float(all_reduce_mean(loss_sum)) / n_steps)
         # the read of the loss waited for the epoch's last step
         self.epoch_stats.append({'steps': n_steps, 'data_wait_s': wait,
                                  'wall_s': time.perf_counter() - t_start})
         kd_text = ''
         if kd_sum is not None:
-            self.epoch_kd_losses.append(float(kd_sum) / n_steps)
+            self.epoch_kd_losses.append(float(all_reduce_mean(kd_sum))
+                                        / n_steps)
             kd_text = f' | KD loss:{self.epoch_kd_losses[-1]:.4g}'
         self.logger.info(f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
                          f'Loss:{self.epoch_losses[-1]:.4g}{kd_text}')
@@ -351,7 +399,8 @@ class SegTrainer:
         """mIoU of the EMA weights over the val split. The confusion matrix
         accumulates on the device in int32, is flushed into a host int64
         matrix before the pixel count could pass int32, and is read back
-        once at the end."""
+        once at the end; in a process group each rank counts its slice and
+        the int64 matrices are summed over the ranks then, once."""
         cfg = self.config
         cm_host = np.zeros((cfg.num_class, cfg.num_class), np.int64)
         cm_dev, dev_pixels = None, 0
@@ -373,6 +422,9 @@ class SegTrainer:
         if cm_dev is None:
             raise RuntimeError('Validation loader yielded no batches.')
         cm_host += cm_dev.cpu().numpy().astype(np.int64)
+        if is_distributed():
+            cm_host = all_reduce_sum(torch.from_numpy(cm_host).to(
+                self.device)).cpu().numpy()
         self.last_cm = cm_host
         score = float(iou_from_cm(cm_host).mean())
         if val_best:
@@ -388,7 +440,7 @@ class SegTrainer:
         """Load best.ckpt into the EMA model and re-validate (reference
         base_trainer.py:165-186)."""
         best_path = os.path.join(self.config.save_dir, 'best.ckpt')
-        self._ckpt_writer.join()      # best.ckpt may still be in flight
+        self._settled()               # best.ckpt may still be in flight
         if load_meta(best_path) is not None:
             restore_weights(best_path, self.ema_model)
         return self.validate(val_best=True)

@@ -29,8 +29,9 @@ def set_seed(seed: int) -> None:
 
 def get_logger(config, main_rank: bool) -> logging.Logger:
     """stderr + file logger (save_dir/<logger_name>.log), stdlib-based.
-    The first call for a logger name sets its handlers; later calls return
-    it as it is."""
+    The main rank logs at INFO into both; the other ranks of a process
+    group log errors alone, to stderr. The first call for a logger name
+    sets its handlers; later calls return it as it is."""
     logger = logging.getLogger(config.logger_name)
     logger.setLevel(logging.INFO if main_rank else logging.ERROR)
     logger.propagate = False          # no second line through the root
@@ -51,7 +52,8 @@ def get_logger(config, main_rank: bool) -> logging.Logger:
 
 
 def save_config(config) -> None:
-    """The resolved config as save_dir/config.json."""
+    """The resolved config as save_dir/config.json (the trainer's main
+    rank writes it)."""
     mkdir(config.save_dir)
     config.save(os.path.join(config.save_dir, 'config.json'))
 

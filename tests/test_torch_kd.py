@@ -336,7 +336,7 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
         found = re.findall(r'ROADMAP\.md Queue 1, "([^"]+)"', text)
         assert len(found) == 1, text
         titles.add(found[0])
-    assert titles == {'The planes', 'Data parallel'}
+    assert titles == {'The planes', 'Spatial mesh'}
     for title in titles:
         assert re.search(r'^\d+\. (~~)?\*\*' + re.escape(title), queue1,
                          re.M), title
