@@ -64,9 +64,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(d)) v over [n, heads, tokens, d] tensors, in
     their type, the scale rounded to that type first as JAX rounds
     `sqrt(asarray(d, dtype))`; queries in slices of rows where a map would
-    pass `chunk` elements."""
+    pass `chunk` elements. A symbolic batch (torch.export with a dynamic
+    batch) sizes the slices for one sample, so that the exported program's
+    slices do not depend on the batch it is called at."""
     n, heads, nq, d = q.shape
     scale = torch.tensor(float(d), dtype=q.dtype).sqrt().item()
+    if isinstance(n, torch.SymInt):
+        n = 1
     rows = max(1, chunk // max(1, n * heads * k.shape[2]))
 
     def part(qs):

@@ -47,16 +47,40 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool
     return m
 
 
-@lru_cache(maxsize=256)
+def _tracing() -> bool:
+    """True under torch.export, torch.compile or any fake-tensor trace:
+    a tensor made there belongs to the trace (a fake tensor, or a
+    constant of the traced program) and must not outlive it."""
+    return (torch.compiler.is_compiling()
+            or torch._guards.detect_fake_mode() is not None)
+
+
+def _operator(in_size: int, out_size: int, align_corners: bool,
+              dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners)).to(device, dtype)
+
+
+_cached_operator = lru_cache(maxsize=256)(_operator)
+
+
 def interp_operator(in_size: int, out_size: int, align_corners: bool,
                     dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """`_interp_matrix` as a tensor of `dtype` on `device`, uploaded once
     per signature (callers never write to it). Made outside inference
     mode, so that a matrix first asked for by an eval step can be saved
-    for a later training backward."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_interp_matrix(
-            in_size, out_size, align_corners)).to(device, dtype)
+    for a later training backward. Under a trace (`_tracing`) it is made
+    anew, a constant of the traced program, and not cached: a cached
+    fake tensor would reach the next trace's program and later eager
+    calls."""
+    if _tracing():
+        return _operator(in_size, out_size, align_corners, dtype, device)
+    return _cached_operator(in_size, out_size, align_corners, dtype, device)
+
+
+interp_operator.cache_clear = _cached_operator.cache_clear
+interp_operator.cache_info = _cached_operator.cache_info
 
 
 def resize_bilinear_nchw(x: torch.Tensor, size: Size2,

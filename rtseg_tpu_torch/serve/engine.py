@@ -16,6 +16,13 @@ shape) fails the construction; the engine never falls back to eager
 execution on the card. On a CPU device that the caller names, the same
 function runs eagerly.
 
+An engine comes from a config (``from_config``: the model, its weights
+from a checkpoint of the port or Flax's initializers) or from a
+`torch.export` artifact (``from_artifact``, export.py: the program alone,
+no model code; its input spec fixes the one bucket). Either function is
+captured the same way. Only the executable cache (``exe_cache``, ``pins``)
+is not ported.
+
 A graph writes the same static output on every replay, so a second
 replay of a bucket overwrites the first one's mask while that batch may
 still be in flight to its reader (the pipeline keeps two batches in
@@ -355,7 +362,28 @@ class ServeEngine:
 
     @classmethod
     def from_artifact(cls, path: str, batch: Optional[int] = None,
-                      name: str = 'serve_engine',
+                      name: str = 'serve_engine', device=None,
                       exe_cache=None) -> 'ServeEngine':
-        raise not_ported('serving an exported artifact (ServeEngine.'
-                         'from_artifact, export.py)', 'The planes')
+        """Engine from a `torch.export` artifact (export.py, `.pt2`),
+        loaded onto ``device`` (the card unless the CPU is named) and
+        captured as one CUDA graph there, eager on the CPU. The artifact's
+        input spec fixes the one bucket; a symbolic batch dimension takes
+        ``batch`` from the caller, a static one must match it."""
+        if exe_cache is not None:
+            raise not_ported('the executable cache (exe_cache)',
+                             'The planes')
+        from ..export import artifact_input_shape, exported_fn, load_exported
+        device = resolve_device(device)
+        exported = load_exported(path, device)
+        b, h, w = artifact_input_shape(exported)
+        if b is not None:
+            if batch is not None and batch != b:
+                raise ValueError(
+                    f'artifact {path} was exported at batch {b}, '
+                    f'requested {batch}')
+            batch = b
+        elif batch is None:
+            raise ValueError(
+                f'artifact {path} has a symbolic batch dim; pass batch=')
+        return cls(exported_fn(exported), [(h, w)], int(batch),
+                   device=device, name=name)

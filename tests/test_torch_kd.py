@@ -321,7 +321,8 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     with pytest.raises(ValueError, match='truncated'):
         make_preprocess(SegConfig())(b'\xff\xd8\xff')
     messages.append(
-        _message(lambda: ServeEngine.from_artifact('model.stablehlo')))
+        _message(lambda: ServeEngine.from_artifact('model.pt2',
+                                                   exe_cache=object())))
     for flag, _, _, _ in tr._NOT_PORTED:
         t = SegTrainer.__new__(SegTrainer)
         t.config = SegConfig(**{'use_tb': False, 'use_obs': False,

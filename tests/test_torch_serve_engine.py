@@ -136,19 +136,20 @@ def test_dispatch_returns_a_handle_read_once(engine):
 
 
 def test_engine_refusals(jax_side):
+    """The executable cache and the compile cache raise, naming "The
+    planes"; export and from_artifact are ported
+    (tests/test_torch_export.py), and the export refuses the TPU."""
     cfg = SegConfig(**_kw())
     with pytest.raises(NotImplementedError, match='"The planes"'):
-        ServeEngine.from_artifact('model.stablehlo', batch=2)
+        ServeEngine.from_artifact('model.pt2', batch=2, exe_cache=object())
     with pytest.raises(NotImplementedError, match='"The planes"'):
         ServeEngine(lambda x: x, BUCKETS, BATCH, device='cpu',
                     exe_cache=object())
     with pytest.raises(NotImplementedError, match='"The planes"'):
         ServeEngine.from_config(SegConfig(compile_cache=True, **_kw()),
                                 BUCKETS, BATCH, device='cpu')
-    for fn in (export.export_model, export.save_exported,
-               export.load_exported):
-        with pytest.raises(NotImplementedError, match='"The planes"'):
-            fn(cfg)
+    with pytest.raises(ValueError, match='the port has no TPU target'):
+        export.export_model(cfg, platforms=('cpu', 'tpu'))
     with pytest.raises(ValueError, match='at least one bucket'):
         ServeEngine(lambda x: x, [], BATCH, device='cpu')
     with pytest.raises(ValueError, match='batch must be'):

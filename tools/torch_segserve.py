@@ -23,19 +23,25 @@ Usage:
     python tools/torch_segserve.py bench --device cpu --compute_dtype \
         float32 ...
 
+    # an exported artifact (tools/torch_export.py), no model code
+    python tools/torch_segserve.py serve --artifact save/bisenetv2.pt2 \
+        --batch 8 --port 8080
+
 The engine captures one CUDA graph a bucket (serve/engine.py). Weights
 come from --ckpt (a checkpoint of the port, train/checkpoint.py; an orbax
-directory of the JAX package raises); without it, from Flax's
-initializers (load generation and capacity tests only). --obs-dir writes
-the request, batch and ingress events.
+directory of the JAX package raises) or --artifact (a torch.export
+program, export.py: its input shape gives the one bucket and a static
+batch, which --batch must match; a symbolic batch takes --batch); with
+neither, from Flax's initializers (load generation and capacity tests
+only). --obs-dir writes the request, batch and ingress events.
 
 `bench --check` is the gate: exit 1 unless 0 drops, 0 rejections, 0
 errors, 0 retraces, one CUDA graph (one eager bucket on the CPU) a
 configured bucket, and e2e p95 under --p95-ms.
 
---artifact, --bundle, --compile-cache and --stream are the JAX tool's and
-raise here: exported artifacts, registry bundles, the compile cache and
-video sessions are not ported (ROADMAP.md Queue 1, "The planes").
+--bundle, --compile-cache and --stream are the JAX tool's and raise here:
+registry bundles, the compile cache and video sessions are not ported
+(ROADMAP.md Queue 1, "The planes").
 
 Exit codes: 0 ok, 1 --check failed, 2 usage error.
 """
@@ -89,12 +95,15 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--no-metrics', action='store_true',
                    help='disable the live metrics registry and request '
                         'tracing')
-    for flag in ('--artifact', '--bundle', '--compile-cache'):
+    p.add_argument('--artifact', default=None,
+                   help='torch.export artifact (tools/torch_export.py) to '
+                        'serve; the bucket comes from its input shape')
+    for flag in ('--bundle', '--compile-cache'):
         p.add_argument(flag, default=None, help='not ported (The planes)')
 
 
 def _refuse_planes(args) -> None:
-    for flag in ('artifact', 'bundle', 'compile_cache', 'stream'):
+    for flag in ('bundle', 'compile_cache', 'stream'):
         if getattr(args, flag, None):
             raise not_ported(f'--{flag.replace("_", "-")}', 'The planes')
 
@@ -112,6 +121,10 @@ def _build_config(args) -> SegConfig:
 
 def _build_engine(args, cfg: SegConfig, buckets=None,
                   batch=None) -> ServeEngine:
+    if args.artifact:
+        return ServeEngine.from_artifact(
+            args.artifact, batch=args.batch if batch is None else batch,
+            device=args.device)
     return ServeEngine.from_config(
         cfg, buckets or parse_buckets(args.buckets),
         args.batch if batch is None else batch, ckpt_path=args.ckpt,
@@ -178,8 +191,10 @@ def cmd_serve(args) -> int:
             f.write(f'{port}\n')
         os.replace(tmp, args.port_file)
     rid = f' | replica {args.replica_id}' if args.replica_id else ''
-    print(f'torch_segserve: {cfg.model} on http://{host}:{port}{rid} | '
-          f'{engine.device} | buckets {args.buckets} x batch {engine.batch}'
+    served = args.artifact or cfg.model
+    buckets = ','.join(f'{h}x{w}' for h, w in engine.buckets)
+    print(f'torch_segserve: {served} on http://{host}:{port}{rid} | '
+          f'{engine.device} | buckets {buckets} x batch {engine.batch}'
           f' | POST /predict /drain /debug/flight, GET /healthz /stats '
           f'/metrics', flush=True)
     # SIGTERM = graceful drain: admission stops, in-flight requests finish,
