@@ -38,8 +38,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      distinct samples on the card (deterministic cuDNN) against the CPU
      path at 64x128, and the card's spread with its default algorithms; the
      train step's time, its split (forward+loss, backward,
-     optimizer+EMA), the card's time by operator over two steps
-     (torch.profiler), the OHEM loss alone, the peak memory, and run()'s
+     optimizer+EMA), the card's time by category and by module over two
+     steps (torch.profiler through obs/profile.py, beside the same steps
+     without the capture), the OHEM loss alone, the peak memory, and run()'s
      wall time beside the loaders alone
   6. zoo: for FastSCNN, DDRNet-23-slim (aux head), STDC1 (detail head),
      the backbone family, BiSeNetv1, ICNet (aux heads), SwiftNet,
@@ -54,8 +55,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      on ResNet-18 (Unet, Unet++, LinkNet, FPN, MAnet, PAN, PSPNet,
      DeepLabV3, DeepLabV3+) and FPN on MiT-b2,
      SegTrainer(cfg).run() from the trainer's default (Flax) init at
-     512x1024 bs16 bf16 (OHEM, SGD under OneCycle, EMA) for 1 epoch of 3
-     steps with its validation and val_best() through K1 and K2 (launch
+     512x1024 bs16 bf16 (OHEM, SGD under OneCycle, EMA) for 1 epoch of 2
+     steps (ZOO_STEPS, cut from 3) with its validation, best.ckpt
+     written, and val_best() from it through K1 and K2 (launch
      counts read around the run: the logits of LinkNet, CANet, ERFNet,
      ESNet, FDDWNet, FSSNet, SQNet, ADSCNet, ESPNet, ENet, MiniNet, SegNet
      and smp's Unet, Unet++, LinkNet and MAnet come at full resolution, so
@@ -70,9 +72,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      STDC's
      detail_conv (no gradient) moved by weight decay as on the CPU; the
      train step's time, split and peak memory, and MiT-b2 FPN's profile
-     (PROFILED); the eval step at 1024x2048, its
+     (PROFILED: by category and by module at depth 2, its attention
+     modules' share); the eval step at 1024x2048, its
      peak memory (a line of its own for MiT-b2), and K1, K2 timed on each
-     model's logits there
+     model's logits there; the models of ZOO_BESIDE in a second process
+     on the card beside the main one, which runs the others
+     (phase_zoo_split: the times of both are taken side by side)
   6b. KD (phase_kd): the reference README's pair, a ResNet-101 DeepLabV3+
      teacher whose run() (1 epoch of 3 steps at 512x1024 bs16 bf16, its
      validation and val_best) writes the checkpoint that a ResNet-18
@@ -118,15 +123,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      suffix with it and with numpy); (b) the README's recipe
      (examples/train_bisenetv2_cityscapes.py: BiSeNetv2, aux heads, OHEM,
      EMA, crop 1024, randscale -0.5..1.0, color jitter 0.5, h_flip 0.5,
-     bs16) through main_torch.main for 2 epochs of 2 steps, then a resume
-     to epoch 3: steps, finite losses and mIoU, last and best written, K1
-     and K2 launches; the loop's ms a step and data-wait share beside the
+     bs16, with the JAX package's use_tb and use_obs and one sampled
+     capture) through main_torch.main for 2 epochs of 2 steps, then a
+     resume to epoch 3: steps, finite losses and mIoU, last and best
+     written, K1 and K2 launches; the event stream (run_start, steps with
+     the first flagged compile, a profile of the card, memory, train and
+     val epochs, run_end), tools/torch_segscope.py report on it (exit 0:
+     train ms a step, data-wait share, goodput, device busy share), the
+     TensorBoard scalars or, without the tensorboard package, its one
+     warning; the loop's ms a step and data-wait share beside the
      step on a resident batch; (c) the raw uint8 tail (jitter off, the
      packed cache, 8 augment worker processes, device prefetch 2):
      device_norm resolved, uint8 batches and [16, 2] flags on the card,
      the first step's loss against the float tail's on the same samples
      (1e-5), every prefetched batch over 2 epochs equal to a synchronous
-     copy; host ms a batch at steady state (an epoch of 4 batches) with 8
+     copy; host ms a batch (an epoch of 2 batches, cut from 4) with 8
      threads and with 8 worker processes; (d)
      CONVERGENCE.md's flagship recipe (synthetic, 8 classes, crop 128,
      bs32, 512 samples, validation every 2 epochs) for 2 epochs and a
@@ -135,6 +146,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      mIoU above epoch 2's; then the pools' fork server and resource
      tracker stopped (segpipe.shutdown), and after phase 8 no process this
      script started still running (read from /proc)
+  9b. tools/torch_profile_step.py (phase_profile_step) on BiSeNetv2's
+     train step at 512x1024 bs16, in this process once the host jobs are
+     done: the device time by module at depth 1
+  9c. telemetry (ObsProcesses) in two processes of their own, since
+     a capture on one thread loses the other threads' kernels of its
+     first D ms, D growing with the time since the process's first
+     profiler session (phase 10 checks that this is detected): (a) a
+     FastSCNN run() on the card (1 epoch of 6 steps at 256x256 bs8,
+     the watchdog's deadline STALL_MIN_S) whose loader stalls once, the
+     card busy with sleep kernels until the stall event is written: one
+     stall event with every thread's stack and the capture window's top
+     device ops; (b) a torch.profiler capture around one validate() of
+     that trainer names K1's and K2's kernels under their own buckets;
+     (d), in the second process, started beside the first and let go
+     once it has ended, then run beside phase 11 (which runs before
+     phase 10): BiSeNetv2's serving engine at 512x1024 x8 behind
+     the HTTP server: under ?raw=1 traffic on 32 connections POST
+     /debug/profile?ms=500 answers 200 with a complete profile of the
+     card (busy share above 0, no lost launch) and an overlapping POST
+     409; the first process reports its K1/K2 launches of (a) and (b)
   10. serve (phase_serve): (a) ServeEngine of BiSeNetv2 (19 classes,
      bf16, Flax init) at buckets 512x1024 and 1024x2048, batch 8: one CUDA
      graph a bucket, 0 retraces, an unknown bucket raises; each graph's
@@ -146,11 +177,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      SERVE_GAP); every registry model and the smp decoders captured and
      replayed at 128x256 x2 bf16, bit-equal to eager, and a capture after
      construction raises; (b) tools/torch_segserve.py bench --check
-     --via-http (mixed 512x1024/1024x2048, open-loop Poisson) at doubling
-     rates until --check fails or the search's budget is spent: p50/p95/
-     p99, imgs/s, the highest passing rate; then 72 ?raw=1 requests on 64
-     connections through a server over the (a) engine, each mask equal to
-     engine.run on its image; (c) main_torch.main --is_testing on 6 PNGs
+     --via-http (mixed 512x1024/1024x2048, open-loop Poisson) at 8 and
+     32 rps (SERVE_RATES) until --check fails or the search's budget is
+     spent: p50/p95/p99, imgs/s, the highest passing rate; then 72 ?raw=1
+     requests on 64 connections through a server over the (a) engine,
+     each mask equal to engine.run on its image; POST /debug/profile
+     under ?raw=1 traffic in this process, whose profiler sessions began
+     in phase 5: 200 with a complete profile, or 503 naming the launches
+     whose kernels its trace lost (ROADMAP Queue 3; a fresh process's
+     200: phase 9c); (c) main_torch.main --is_testing on 6 PNGs
      at 1024x2048, 720x1280 and 512x1024 from a best.ckpt of the port:
      every mask file equal to the engine's mask, every blend at its
      image's size, the wall and peak memory; K1 and K2 launch counts
@@ -187,8 +222,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      through K1 and K2 (launches counted in each rank; K1 and K2 on its
      EMA logits against their plain versions), the summed confusion
      matrix bit-equal to one process's validate of the ranks' best.ckpt
-     at the per-call batch 8; (b), its first pair started once the ranks
-     have timed their steps: an NCCL world of one, `python -m
+     at the per-call batch 8; (b), started after phase 6 and run beside
+     phases 6b and 6c (DdpPairs): an NCCL world of one, `python -m
      torch.distributed.run --standalone --nproc_per_node 1` running
      main_torch.py for 2 epochs of 2 steps and a resume to 3, against
      main_torch.py without a launcher, side by side, both as __main__
@@ -222,13 +257,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      1 and 3 within 1e-5 of the eager forward on the artifact's weights;
      K1 and K2 launch counts unchanged
   14. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
-     {"import": ...}, {"main": ...}, {"serve": ...}, {"jpeg": ...},
+     {"import": ...}, {"main": ...}, {"obs": ...}, {"serve": ...},
+     {"jpeg": ...},
      {"ddp": ...} and {"export": ...} lines, and the {"kernels": [...]}
      line, whose launch counts are those of the eval slice (phase 4), the
      train run (phase 5), the zoo's runs (phase 6), the KD runs (phase
      6b), the optimizer tail's runs and eval step (phase 6c), phase 9's
-     runs, phase 11's and phase 12's together, checked exactly against
-     the counts they give: K1 118, K2 150 (phases 10 and 13 add none);
+     runs, phase 9c's, phase 11's and phase 12's together, checked
+     exactly against the counts they give: K1 122, K2 154 (phases 10 and
+     13 add none);
   15. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -239,6 +276,7 @@ from __future__ import annotations
 import atexit
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -258,6 +296,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 B, h, w, C = 16, 128, 256, 19          # deferred BiSeNetv2 logits
+PROFILE_DEPTH = 4                      # module ranges (MiT's .../attn)
 H, W = 1024, 2048                      # Cityscapes val shape
 TRAIN_H, TRAIN_W = 512, 1024           # Cityscapes training crop
 IGNORE = 255
@@ -681,15 +720,15 @@ def phase_slice(dev):
     trainer = SegTrainer(cfg, variables=variables)
     n_batches = len(trainer.val_loader)
     check(n_batches >= 3, f'only {n_batches} val batches')
-    # count the valid pixels on a serial pass of the loader, which also
-    # times the host's data alone against validate() on loader threads
+    # count the valid pixels on a pass of the loader (on its threads, as
+    # validate() runs it: the serial pass of earlier runs took 14-20 s),
+    # which also times the host's data alone against validate()
     loader = trainer.val_loader
-    threads, loader.workers = loader.workers, 0
+    threads = loader.workers
     t0 = time.perf_counter()
     valid = sum(int(((m != IGNORE) & (m >= 0) & (m < C)).sum())
                 for _, m in loader)
-    serial_s = time.perf_counter() - t0
-    loader.workers = threads
+    loader_s = time.perf_counter() - t0
 
     resize_argmax.launches = 0
     confusion_matrix_pallas.launches = 0
@@ -703,8 +742,8 @@ def phase_slice(dev):
     say(f'slice: BiSeNetv2 bf16 eval, {n_batches} batches of {B}x{H}x{W}: '
         f'mIoU {miou:.6f}, cm sum {int(trainer.last_cm.sum())} of {valid} '
         f'valid px, {wall:.3f} s ({n_batches * B / wall:.2f} imgs/s incl. '
-        f'host data; the serial loader alone took {serial_s:.3f} s, '
-        f'validate() uses {threads} loader threads), launches {launches}')
+        f'host data; the loader alone took {loader_s:.3f} s on the '
+        f'{threads} loader threads validate() uses), launches {launches}')
     check(math.isfinite(miou), 'mIoU is not finite')
     check(int(trainer.last_cm.sum()) == valid,
           'confusion-matrix sum != valid pixels')
@@ -873,30 +912,68 @@ def _train_card_vs_cpu(variables):
 
 
 def _profile_step(step, state, imgs, msks, n: int = 2, label='train'):
-    """torch.profiler over n train steps: the card's time by operator
-    (self time of the kernels each launched), the 12 largest, and the
-    share of the steps' wall that the card was busy."""
-    from torch.profiler import ProfilerActivity, profile
+    """n train steps under obs/profile.py's Capture (torch.profiler with
+    module ranges on the model, PROFILE_DEPTH deep) parsed by parse_trace:
+    the card's busy time a step (the union of its kernels), by category,
+    the 12 largest kernels, the time by module at depth 2 (and, for MiT,
+    the attention modules' share), and the steps' wall with the capture
+    beside n steps without it (the profiler's cost)."""
+    from rtseg_tpu_torch.obs.profile import Capture, parse_trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step(state, imgs, msks)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [(e.self_device_time_total / 1e3 / n, e.count // n, e.key)
-           for e in prof.key_averages()
-           if e.self_device_time_total > 0 and e.device_type.name == 'CPU']
-    total = sum(t for t, _, _ in ops)
-    check(total > 0, 'the profiler saw no device time')
-    ops.sort(reverse=True)
-    say(f'{label} step profile ({n} steps, torch.profiler): card busy '
-        f'{total:.3f} ms a step of {wall_ms / n:.3f} ms wall; by operator '
-        f'(self device ms a step, calls a step): '
-        + '; '.join(f'{k} {t:.3f} ({c})' for t, c, k in ops[:12]))
-    return {'device_ms': total, 'wall_ms': wall_ms / n,
-            'top': [[k, t, c] for t, c, k in ops[:12]]}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, imgs, msks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / n
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_prof_')
+    try:
+        cap = Capture((state.model,), PROFILE_DEPTH)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, imgs, msks)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            cap.stop(tmp)
+        prof = parse_trace(tmp, depth=PROFILE_DEPTH)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(prof.device_track and prof.busy_us > 0,
+          f'{label}: the profiler saw no device time')
+    total = prof.busy_us / 1e3 / n
+    cats = sorted(prof.categories.items(), key=lambda kv: -kv[1])
+    # depth 2: the deep paths cut to two components (what a parse at
+    # depth 2 gives: the innermost range, cut)
+    by2 = {}
+    for k, v in prof.modules.items():
+        short = '/'.join(k.split('/')[:2])
+        by2[short] = by2.get(short, 0.0) + v
+    mods = sorted(by2.items(), key=lambda kv: -kv[1])
+    summed = sum(prof.categories.values())
+    attn = sum(v for k, v in prof.modules.items()
+               if k.rsplit('/', 1)[-1] == 'attn')
+    say(f'{label} step profile ({n} steps, torch.profiler through '
+        f'obs/profile.py): card busy {total:.3f} ms a step of '
+        f'{wall_ms:.3f} ms wall ({plain_ms:.3f} ms a step without the '
+        f'capture: +{100 * (wall_ms / plain_ms - 1):.1f}%); by category '
+        f'(ms a step): ' + '; '.join(f'{k} {v / 1e3 / n:.3f}'
+                                     for k, v in cats[:10])
+        + '; largest kernels: ' + '; '.join(
+            f'{name[:60]} {us / 1e3 / n:.3f}' for name, us in
+            prof.top_ops[:6]))
+    say(f'{label} step by module at depth 2 (ms a step, share of the '
+        f'kernels\' time): ' + '; '.join(
+            f'{k} {v / 1e3 / n:.3f} ({100 * v / summed:.1f}%)'
+            for k, v in mods[:14])
+        + f'; no module {(summed - sum(by2.values())) / 1e3 / n:.3f}'
+        + (f'; attention modules (*/attn) {attn / 1e3 / n:.3f} ms, '
+           f'{100 * attn / summed:.1f}%' if attn else ''))
+    return {'device_ms': total, 'wall_ms': wall_ms, 'plain_wall_ms': plain_ms,
+            'categories': {k: v / 1e3 / n for k, v in cats},
+            'modules': {k: v / 1e3 / n for k, v in mods},
+            'attn_ms': attn / 1e3 / n,
+            'top': [[k, v / 1e3 / n] for k, v in prof.top_ops]}
 
 
 def _step_times(trainer, cfg, imgs, msks, iters: int = 5, warmup: int = 2,
@@ -1206,6 +1283,37 @@ PROFILED = ('smp FPN MiT-b2',)
 # backward, optimizer+EMA: two more steps; the others' are in PERF.md
 # from their slices)
 ZOO_TIMED = 1
+# steps of a zoo model's run() (its one epoch): cut from 3 to keep the
+# script within its time limit
+ZOO_STEPS = 2
+
+# the zoo models that phase 6 runs in a second process on the card, beside
+# the main one (phase_zoo_split), to keep the script within its time
+# limit: models whose train and eval steps peak under 15.5 GiB (PR 17's
+# runs), so that the two processes together stay within the card's 80 GB
+# beside SegNet's 51 GiB in the main one. The main process keeps the
+# others, CFPNet, PAN, Unet and DeepLabV3+ (so that the child, which
+# starts later, ends first) and MiT-b2 FPN (PROFILED) last
+ZOO_BESIDE = ('FastSCNN', 'DDRNet-23-slim', 'STDC1', 'BiSeNetv1', 'ICNet',
+              'SwiftNet', 'FarSeeNet', 'ShelfNet', 'LinkNet', 'PP-LiteSeg',
+              'DABNet', 'ESNet', 'FSSNet', 'EDANet', 'ESPNet', 'ESPNetv2',
+              'CGNet', 'RegSeg', 'LEDNet', 'ENet', 'MiniNet', 'smp FPN',
+              'smp MAnet', 'smp PSPNet', 'smp DeepLabV3')
+# the environment of the process beside: the directory of the CPU sides
+# of its card-against-CPU runs and the main process's eval batch's sums
+ZOO_BESIDE_ENV = 'CHIP_SMOKE_ZOO_BESIDE'
+
+
+def zoo_cpu_order():
+    """ZOO in the order phase 6's two processes ask for their CPU sides
+    (HostJobs computes them in this order): the main process's models and
+    ZOO_BESIDE's in turn."""
+    here = [m for m in ZOO if m[0] not in ZOO_BESIDE]
+    beside = [m for m in ZOO if m[0] in ZOO_BESIDE]
+    order = []
+    for i in range(max(len(here), len(beside))):
+        order += here[i:i + 1] + beside[i:i + 1]
+    return order
 
 
 def zoo_key(kw) -> str:
@@ -1261,7 +1369,8 @@ def _zoo_cpu_run(job):
     torch.set_num_threads(1)
     _UNUSED[:] = [unused]
     from rtseg_tpu_torch.models import get_model
-    cfg = _train_config(unused, synthetic_len=3 * B, total_epoch=1, **kw)
+    cfg = _train_config(unused, synthetic_len=ZOO_STEPS * B, total_epoch=1,
+                        **kw)
     build = zoo_small_model(kw)
     variables = zoo_small_variables(kw, (build or get_model)(cfg))
     return _card_vs_cpu_runs(variables, ('cpu',), build,
@@ -1373,11 +1482,12 @@ def _eval_peak(step, imgs, msks) -> int:
     return torch.cuda.max_memory_allocated()
 
 
-def phase_zoo(dev, card, eval_imgs, eval_msks, host=None):
-    """Each model of ZOO: SegTrainer(cfg).run() from the trainer's default
+def phase_zoo(dev, card, eval_imgs, eval_msks, host=None, models=ZOO):
+    """Each model of `models` (ZOO's): SegTrainer(cfg).run() from the trainer's default
     weights (the initializers of Flax's model.init) at 512x1024 bs16 bf16
-    (SGD OneCycle, EMA, OHEM) for 1 epoch of 3 steps and a validation of 16
-    images (then val_best's) through K1 and K2 with their launch counts;
+    (SGD OneCycle, EMA, OHEM) for 1 epoch of ZOO_STEPS steps and a
+    validation of 16 images, best.ckpt written and restored by val_best's
+    validation, through K1 and K2 with their launch counts;
     K1 and K2 on the EMA model's logits of a val batch against their plain
     versions; 3 float32 steps card vs CPU; the step's times, its profile,
     peak memory and the eval step at 1024x2048 with K1 and K2 timed on the
@@ -1393,12 +1503,12 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, host=None):
 
     launches = {'resize_argmax': 0, 'confusion_matrix': 0}
     out = {}
-    for name, kw, stride, samples in ZOO:
+    for name, kw, stride, samples in models:
         t_model = time.perf_counter()
         tmp = tempfile.mkdtemp(prefix='chip_smoke_zoo_')
         try:
-            cfg = _train_config(tmp, synthetic_len=3 * B, total_epoch=1,
-                                **kw)
+            cfg = _train_config(tmp, synthetic_len=ZOO_STEPS * B,
+                                total_epoch=1, **kw)
             trainer = SegTrainer(cfg)
             n_val = len(trainer.val_loader)
             check(n_val == 1, f'{name}: {n_val} val batches')
@@ -1420,7 +1530,8 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, host=None):
                 f'launches {got} for {2 * n_val} val batches')
             check(len(losses) == 1 and math.isfinite(losses[0]),
                   f'{name} epoch losses {losses}')
-            check(trainer.state.step == 3, f'{name} step {trainer.state.step}')
+            check(trainer.state.step == ZOO_STEPS,
+                  f'{name} step {trainer.state.step}')
             check(math.isfinite(miou), f'{name} mIoU is not finite')
             # the epoch's validation and val_best's; full-resolution logits
             # take the identity-size argmax and launch no K1
@@ -1547,7 +1658,122 @@ def phase_zoo(dev, card, eval_imgs, eval_msks, host=None):
                      'card_vs_cpu_weights': cpu_abs,
                      'card_vs_cpu_samples': samples}
         del trainer, step
+        # what this process holds on the card stays its live tensors: the
+        # process beside it (phase_zoo_split) needs the rest
+        torch.cuda.empty_cache()
     return launches, out
+
+
+def _eval_sums(imgs, msks) -> list:
+    """Two float64 sums that tell whether two processes made the same
+    eval batch."""
+    return [float(imgs.double().sum()), float(msks.double().sum())]
+
+
+class _ZooCpuFiles:
+    """The CPU sides of the card-against-CPU runs of the process beside
+    the main one (phase_zoo_beside): the files that the main process
+    writes from HostJobs (`_feed_zoo_cpu`), one a model of ZOO_BESIDE,
+    waited for."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def zoo_cpu(self, name):
+        path = os.path.join(self.root, f'{ZOO_BESIDE.index(name)}.pt')
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            check(time.perf_counter() - t0 < 900,
+                  f'{name}: no CPU side within 900 s')
+            time.sleep(0.05)
+        res = torch.load(path, weights_only=False)
+        check(not isinstance(res, dict), f'{name}: the CPU side failed: '
+              f'{res.get("error") if isinstance(res, dict) else ""}')
+        return res
+
+
+def _feed_zoo_cpu(host, root: str):
+    """Write the CPU sides of ZOO_BESIDE's runs from `host` (HostJobs)
+    into `root` as they come, one file a model, each in one rename; a
+    failure is written in the failed model's file and in every later
+    one."""
+    error = None
+    for i, name in enumerate(ZOO_BESIDE):
+        path = os.path.join(root, f'{i}.pt')
+        if error is None:
+            try:
+                res = host.zoo_cpu(name)
+            except Exception as e:          # the child reads it and fails
+                error = f'{type(e).__name__}: {e}'
+        torch.save(res if error is None else {'error': error},
+                   path + '.part')
+        os.replace(path + '.part', path)
+
+
+def phase_zoo_beside(dev, card):
+    """Phase 6's models of ZOO_BESIDE, in a process of its own beside the
+    main one (phase_zoo_split): the slice's eval batch made again from
+    its config (and checked against the main process's by its sums), the
+    CPU sides from the main process's files."""
+    from rtseg_tpu_torch.data import get_loader
+    root, sums = json.loads(os.environ[ZOO_BESIDE_ENV])
+    cfg = _slice_config()
+    cfg.resolve(num_devices=1)
+    _, val = get_loader(cfg)
+    imgs, msks = next(iter(val))
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    check(_eval_sums(imgs, msks) == sums,
+          f'the eval batch beside: sums {_eval_sums(imgs, msks)} != {sums}')
+    return phase_zoo(dev, card, imgs, msks, _ZooCpuFiles(root),
+                     [m for m in ZOO if m[0] in ZOO_BESIDE])
+
+
+def phase_zoo_split(dev, card, eval_imgs, eval_msks, host):
+    """Phase 6 in two processes side by side on the card: the models of
+    ZOO_BESIDE in a child (phase_zoo_beside, started first; its CPU sides
+    from `host` through files a thread here writes), the others here.
+    The child's lines are printed after it ends; its failure fails the
+    phase. (launches of both, the results of both in ZOO's order)."""
+    root = str(Path(__file__).resolve().parent)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_zoo_beside_')
+    files = [open(os.path.join(tmp, n), 'w+') for n in ('out', 'err')]
+    env = dict(os.environ)
+    env[ZOO_BESIDE_ENV] = json.dumps([tmp, _eval_sums(eval_imgs,
+                                                      eval_msks)])
+    child = _obs_child(root, 'phase_zoo_beside', card, stdout=files[0],
+                       stderr=files[1], env=env)
+    feeder = threading.Thread(target=_feed_zoo_cpu, args=(host, tmp),
+                              daemon=True)
+    feeder.start()
+    try:
+        launches, out = phase_zoo(dev, card, eval_imgs, eval_msks, host,
+                                  [m for m in ZOO if m[0] not in ZOO_BESIDE])
+        t0 = time.perf_counter()
+        try:
+            child.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            pass
+        waited = time.perf_counter() - t0
+        for f in files:
+            f.seek(0)
+        res = _obs_child_result('zoo', child, files[0].read(),
+                                files[1].read())
+        feeder.join(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        for f in files:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f'zoo: {len(ZOO_BESIDE)} models in a process beside this one, '
+        f'{len(ZOO) - len(ZOO_BESIDE)} here; this one waited {waited:.1f} s '
+        f'for it at the end (times taken side by side: not speed figures)')
+    beside = res['obs']
+    launches = {k: v + res['launches'][k] for k, v in launches.items()}
+    return launches, {name: (out[name] if name in out else beside[name])
+                      for name, *_ in ZOO}
 
 
 # ----------------------------------------------------------------- phase 6b
@@ -2475,13 +2701,19 @@ def phase_times(dev, trainer, imgs, msks, preds, launches, wall, k1_err,
 MAIN_TRAIN, MAIN_VAL = 32, 16          # Cityscapes-layout tree, 1024x2048
 MAIN_CELL = 64                          # its 16 x 32 cells' pixels
 # examples/train_bisenetv2_cityscapes.py, the README's headline recipe, cut
-# from 800 epochs to 2
+# from 800 epochs to 2, with the JAX package's defaults (use_tb, use_obs)
+# and a sampled capture of one step every 2 (one in the 2 epochs of 2)
 RECIPE = ['--dataset', 'cityscapes', '--num_class', '19', '--model',
           'bisenetv2', '--use_aux', '--aux_coef', '1', '1', '1', '1',
           '--loss_type', 'ohem', '--train_bs', '16', '--base_lr', '0.05',
           '--use_ema', '--crop_size', '1024', '--randscale', '-0.5', '1.0',
-          '--h_flip', '0.5', '--use_tb', 'false', '--use_obs', 'false']
+          '--h_flip', '0.5', '--profile_every', '2',
+          '--profile_capture_iters', '1']
 JITTER = ['--brightness', '0.5', '--contrast', '0.5', '--saturation', '0.5']
+# passes over the tree's 32 train PNGs (2 batches of 16 a pass) that time
+# the host ms a batch: cut from 2 to 1 to keep the script within
+# its time limit
+HOST_EPOCHS = 1
 # CONVERGENCE.md's flagship recipe (the fields the parser has no flag for
 # go in the config)
 # epochs of each half of the convergence run (a run, then a resume to
@@ -2630,6 +2862,111 @@ def _recording_steps():
     return seen, lambda: setattr(trainer_mod, 'build_train_step', build)
 
 
+class _Records(logging.Handler):
+    """The messages a logger emits while it is attached."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.WARNING)
+        self.messages, self._logger = [], logging.getLogger(name)
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+
+def _tb_scalars(log_dir: str) -> list:
+    """(tag, step, value) of the TensorBoard event files in log_dir,
+    read with TensorBoard's Event proto."""
+    import struct
+    from tensorboard.compat.proto import event_pb2
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), 'rb') as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            (n,) = struct.unpack('<Q', data[pos:pos + 8])
+            ev = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            out += [(v.tag, ev.step, v.simple_value)
+                    for v in ev.summary.value]
+    return out
+
+
+def _recipe_obs_checks(save: str, warnings: list, card: str) -> dict:
+    """Phase 9 (b)'s telemetry: the event stream of the recipe's run
+    (run_start, steps with the first flagged compile, a sampled profile
+    on the card, memory, train and val epochs, run_end),
+    tools/torch_segscope.py report on it (exit 0; its train ms a step,
+    data-wait share, goodput, device busy share) and the TensorBoard
+    scalars, or, without the tensorboard package, the one warning that
+    names it."""
+    import contextlib
+    import importlib.util
+    import io
+    obs_dir = os.path.join(save, 'segscope')
+    with open(os.path.join(obs_dir, 'events-000.jsonl')) as f:
+        events = [json.loads(line) for line in f]
+    kinds = [e['event'] for e in events]
+    check(kinds[0] == 'run_start' and kinds[-1] == 'run_end',
+          f'recipe events start {kinds[:1]} end {kinds[-1:]}')
+    steps = [e for e in events if e['event'] == 'step']
+    check(steps and steps[0]['kind'] == 'train'
+          and steps[0].get('compile') is True,
+          f'recipe first step event {steps[:1]}')
+    profs = [e for e in events if e['event'] == 'profile']
+    check(len(profs) == 1 and profs[0]['device_track']
+          and profs[0]['busy_frac'] > 0 and not profs[0]['retraced'],
+          f'recipe profile events {profs}')
+    check('memory' in kinds, 'no memory event in the recipe run')
+    epochs = {e['kind'] for e in events if e['event'] == 'epoch'}
+    check(epochs == {'train', 'val'}, f'recipe epoch events {epochs}')
+    tool = _load_tool('torch_segscope')
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = tool.main(['report', obs_dir, '--json'])
+    check(rc == 0, f'torch_segscope report exited {rc}')
+    rep = json.loads(text.getvalue())
+    check(rep['device_busy_frac'] is not None,
+          f'the report has no device section: {rep.get("device")}')
+    out = {'events': len(events), 'kinds': sorted(set(kinds)),
+           'report': {k: rep[k] for k in (
+               'step_p50_s', 'step_p95_s', 'data_wait_frac', 'goodput',
+               'compile_s', 'stalls', 'wall_s', 'device_busy_frac')},
+           'profile': {k: profs[0][k] for k in (
+               'device_busy_ms', 'busy_frac', 'wall_ms', 'categories',
+               'modules')}}
+    # the sampled capture runs on the step's thread; what another thread
+    # launched (the prefetcher's copies) its trace may lose late in the
+    # process (ROADMAP Queue 3), and its event names how many
+    out['profile']['lost_launches'] = profs[0].get('lost_launches', 0)
+    if importlib.util.find_spec('tensorboard') is not None:
+        tags = {t for t, _, _ in _tb_scalars(os.path.join(save, 'tb_logs'))}
+        check({'train/loss', 'val/mIoU'} <= tags,
+              f'recipe TensorBoard tags {sorted(tags)[:8]}')
+        out['tensorboard'] = sorted(tags)
+        tb_text = f'TensorBoard scalars {len(tags)} tags'
+    else:
+        found = [m for m in warnings if 'tensorboard package' in m]
+        check(len(found) == 1, f'no tensorboard, warnings {warnings}')
+        out['tensorboard'] = found[0]
+        tb_text = 'no tensorboard package here: one warning logged'
+    say(f'main (b) telemetry ({card}): {len(events)} events '
+        f'{sorted(set(kinds))}; torch_segscope report: train step p50 '
+        f'{rep["step_p50_s"] * 1e3:.1f} ms, data-wait share '
+        f'{rep["data_wait_frac"]:.3f}, goodput {rep["goodput"]:.3f}, '
+        f'device busy share {rep["device_busy_frac"]:.3f} (one sampled '
+        f'step, {profs[0]["device_busy_ms"]:.1f} ms busy, '
+        f'{out["profile"]["lost_launches"]} lost launches); {tb_text}')
+    return out
+
+
 def phase_main(dev, card):
     """main_torch.py on the card: (a) a Cityscapes tree of PNGs; (b) the
     README's BiSeNetv2 recipe for 2 epochs and a resume to 3; (c) the raw
@@ -2684,9 +3021,11 @@ def phase_main(dev, card):
         argv = RECIPE + JITTER + ['--data_root', root, '--save_dir', save]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (trainer, score), n = _counted(lambda: main_torch.main(
-            argv + ['--total_epoch', '2']))
+        with _Records('seg_trainer') as records:
+            (trainer, score), n = _counted(lambda: main_torch.main(
+                argv + ['--total_epoch', '2']))
         wall_b = time.perf_counter() - t0
+        obs = _recipe_obs_checks(save, records.messages, card)
         n_val = len(trainer.val_loader)
         check([s['steps'] for s in trainer.epoch_stats] == [2, 2],
               f'recipe steps {trainer.epoch_stats}')
@@ -2717,7 +3056,8 @@ def phase_main(dev, card):
         launches = {k: launches[k] + n[k] for k in launches}
         loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats_b]
         wait = [s['data_wait_s'] / s['wall_s'] for s in stats_b]
-        out['recipe'] = {'wall_s': wall_b, 'losses': resumed.epoch_losses,
+        out['recipe'] = {'wall_s': wall_b, 'obs': obs,
+                         'losses': resumed.epoch_losses,
                          'miou': score, 'resumed_miou': score_r,
                          'loop_ms_a_step': loop, 'data_wait_share': wait,
                          'device_step_ms': step_ms}
@@ -2799,10 +3139,10 @@ def phase_main(dev, card):
                       f'prefetched batch {n_batches} differs')
                 n_batches += 1
         del busy, sync, raw_trainer
-        # host ms a batch at steady state: an epoch of 4 batches (the
-        # tree's samples twice over; 8 before PR 14), float tail with
-        # jitter (b) and raw tail from the cache (c), 8 threads or 8
-        # worker processes
+        # host ms a batch: an epoch of 2 batches (the tree's samples; cut
+        # from 8 to 4, then 2, for the time limit), float tail with jitter
+        # (b) and raw tail from the cache (c), 8 threads or 8 worker
+        # processes
         per_batch = {}
         for name, extra in (('float+jitter', dict(brightness=0.5,
                                                   contrast=0.5,
@@ -2814,14 +3154,15 @@ def phase_main(dev, card):
             for k, v in extra.items():
                 setattr(cfg, k, v)
             loader = get_loader(cfg.resolve())[0]
-            ds = _Repeat(loader.dataset, 2)
+            ds = _Repeat(loader.dataset, HOST_EPOCHS)
             cache = loader.source.cache
             for workers in (0, 8):
                 per_batch[f'{name}, aug_workers {workers}'] = \
                     _loader_batch_ms(ShardedLoader(
                         ds, loader.global_batch, seed=1,
                         workers=cfg.base_workers, raw_tail=loader.raw_tail,
-                        cache=None if cache is None else _Repeat(cache, 2),
+                        cache=None if cache is None else _Repeat(
+                            cache, HOST_EPOCHS),
                         mp_workers=workers))
         loop = [s['wall_s'] / s['steps'] * 1e3 for s in stats_c]
         wait = [s['data_wait_s'] / s['wall_s'] for s in stats_c]
@@ -2838,8 +3179,8 @@ def phase_main(dev, card):
             f'{n_batches} prefetched batches equal to synchronous copies; '
             f'loop ms a step {[round(x, 1) for x in loop]}, data wait share '
             f'{[round(x, 3) for x in wait]}')
-        say('main host ms a batch of 16 at crop 1024, an epoch of 4 '
-            'batches: ' + '; '.join(
+        say(f'main host ms a batch of 16 at crop 1024, an epoch of '
+            f'{2 * HOST_EPOCHS} batches: ' + '; '.join(
             f'{k} {v:.1f}' for k, v in per_batch.items()))
 
         # (d) the convergence run: CONVERGE_HALF epochs, then a resume to
@@ -2885,6 +3226,377 @@ def phase_main(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 9c
+# a tiny FastSCNN run() whose loader stalls once; the watchdog's deadline
+# is STALL_MIN_S (the JAX default is 120 s): a first call of a signature
+# (the val step's kernels, loaded lazily) must stay under it
+STALL_RUN = dict(dataset='synthetic', model='fastscnn', num_class=C,
+                 crop_size=256, train_bs=8, val_bs=8, synthetic_len=48,
+                 total_epoch=1, begin_val_epoch=1, log_interval=0,
+                 load_ckpt=False, save_ckpt=False, use_tb=False,
+                 watchdog_factor=5.0)
+STALL_MIN_S = 2.0
+# the 4th batch comes late: until the stall event is written (the
+# watchdog's capture window has closed), at most STALL_S
+STALL_AT, STALL_S = 3, 30.0
+# tools/torch_profile_step.py on the flagship's training step
+PROFILE_STEP = ['--model', 'bisenetv2', '--batch', str(B), '--imgh',
+                str(TRAIN_H), '--imgw', str(TRAIN_W), '--iters', '2',
+                '--depth', '1']
+
+
+class _DeviceStall:
+    """A train loader whose batch `at` comes late, once, the card busy
+    meanwhile with sleep kernels (a hung device call: the host waits on
+    the card). A host sleep would leave the card idle, and the stall's
+    capture window would then rightly see no kernel. The batches are
+    fetched ahead of the steps (the loader's producer, the device
+    prefetcher), so the stall starts once `steps()` reaches `at`: the
+    steps before it have run and the next one waits for the whole
+    stall. It lasts until `over()` (the stall event is written, so the
+    watchdog's window has closed; the profiler's start can take
+    seconds), at most `seconds`."""
+
+    def __init__(self, loader, at: int, seconds: float, steps, over):
+        self.loader, self.at, self.seconds = loader, at, seconds
+        self.steps, self.over = steps, over
+        self.done = False
+        self.started: float = 0.0          # wall clock, as events' ts
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.at and not self.done:
+                self.done = True
+                while self.steps() < self.at:
+                    time.sleep(0.005)
+                self.started = time.time()
+                end = time.perf_counter() + self.seconds
+                while time.perf_counter() < end and not self.over():
+                    torch.cuda._sleep(50_000_000)      # ~25 ms a kernel
+                    torch.cuda.synchronize()
+            yield batch
+
+
+def phase_profile_step(card) -> dict:
+    """Phase 9b: tools/torch_profile_step.py on BiSeNetv2's train step at
+    512x1024 bs16 (in this process, after phase 9, when the host jobs are
+    done: the capture's host work slows the steps on a busy host): the
+    device time by module at depth 1 and by category."""
+    import contextlib
+    import io
+    tool = _load_tool('torch_profile_step')
+    text = io.StringIO()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_profile_step_')
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = tool.main(PROFILE_STEP + ['--trace-dir', tmp])
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    table = text.getvalue()
+    check(rc == 0 and '| DetailBranch_0 |' in table
+          and '| SemanticBranch_0 |' in table,
+          f'torch_profile_step exited {rc}: {table[-600:]}')
+    rows = [line for line in table.split('| category |')[0].splitlines()
+            if line.startswith('| ') and not line.startswith('|--')]
+    say(f'profile_step tools/torch_profile_step.py {" ".join(PROFILE_STEP)} '
+        f'({card}, {secs:.1f} s): ' + ' '.join(rows))
+    torch.cuda.empty_cache()
+    return {'argv': PROFILE_STEP, 'seconds': secs, 'table': rows}
+
+
+def _debug_profile_under_traffic(engine=None, fresh: bool = True) -> dict:
+    """`engine` (by default BiSeNetv2's serving engine, bf16, Flax init,
+    at 512x1024 x8) behind a pipeline and the HTTP server; ?raw=1
+    requests at 512x1024 on 32 connections from before the first
+    /debug/profile POST until both have answered (the profiler's start
+    takes up to a second), and under them the /debug/profile checks
+    (_debug_profile_checks, `fresh` or not)."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from rtseg_tpu_torch.data import png
+    from rtseg_tpu_torch.obs import MetricsRegistry
+    from rtseg_tpu_torch.serve import (ServeEngine, ServePipeline,
+                                       make_preprocess, make_server)
+    from rtseg_tpu_torch.utils import get_colormap
+    cfg = _serve_config()
+    own = engine is None
+    if own:
+        engine = ServeEngine.from_config(cfg, SERVE_BUCKETS[:1], SERVE_BATCH)
+    rng = np.random.default_rng(21)
+    bodies = [png.encode(_blocky(rng, SERVE_BUCKETS[0])) for _ in range(8)]
+    pipe = ServePipeline(engine, max_wait_ms=5.0, max_queue=256,
+                         preprocess=make_preprocess(cfg), pre_workers=4,
+                         post_workers=4, registry=MetricsRegistry())
+    server = make_server(pipe, port=0, colormap=get_colormap(cfg))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+
+    done = threading.Event()
+
+    def client(k):
+        codes = []
+        while not done.is_set():
+            req = urllib.request.Request(
+                base + '/predict?raw=1', data=bodies[k % len(bodies)],
+                method='POST')
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                codes.append(resp.status)
+        return codes
+
+    try:
+        with ThreadPoolExecutor(max_workers=32) as pool:
+            futures = [pool.submit(client, k) for k in range(32)]
+            try:
+                time.sleep(0.5)
+                out = _debug_profile_checks(base, fresh)
+            finally:
+                done.set()
+            codes = [c for f in futures for c in f.result()]
+    finally:
+        server.shutdown()
+        server.server_close()
+        pipe.close()
+        thread.join(timeout=30)
+    check(not thread.is_alive() and codes and set(codes) == {200},
+          f'the profiled traffic: {len(codes)} answers, '
+          f'{sorted(set(codes))}')
+    out['requests'] = len(codes)
+    if own:
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+OBS_CHILD = """import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+launches, out = cs.{phase}(torch.device('cuda'), {card!r})
+print(json.dumps({{'launches': launches, 'obs': out}}))
+"""
+
+
+def _obs_child(root: str, phase: str, card: str, **kw):
+    return subprocess.Popen(
+        [sys.executable, '-c', OBS_CHILD.format(root=root, phase=phase,
+                                                 card=card)],
+        text=True, cwd=root, **kw)
+
+
+def _obs_child_result(name: str, proc, out: str, err: str):
+    """The child's printed lines (said here) and its JSON result; its
+    failure fails the phase."""
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        say(line)
+    check(proc.returncode == 0 and lines,
+          f'the {name} process exited {proc.returncode}: {err[-3000:]}')
+    return json.loads(lines[-1])
+
+
+class ObsProcesses:
+    """Phase 9c, once the host jobs are done, in two processes of their
+    own, each of whose captures from another thread is that process's
+    first profiler session: a capture started on one thread loses the
+    kernels that other threads launch in its first D ms, D growing with
+    the time since the process's first profiler session (ROADMAP Queue
+    3; phase 10 checks that this process's /debug/profile says so).
+    phase_obs (the stall, the validate capture) runs first (`stall`);
+    phase_obs_serve (/debug/profile) starts beside it, reaches the card,
+    waits on its standard input until phase_obs has ended, and then runs
+    beside phase 11 until `finish`. Their lines are printed here, and the
+    failure of either fails the phase; `stop` ends what still runs."""
+
+    def __init__(self, card):
+        self.root = str(Path(__file__).resolve().parent)
+        self.card = card
+        torch.cuda.empty_cache()
+        self.t0 = time.perf_counter()
+        self.logs = tempfile.mkdtemp(prefix='chip_smoke_obs_logs_')
+        self.files = [open(os.path.join(self.logs, n), 'w+')
+                      for n in ('out', 'err')]
+        self.serve = _obs_child(self.root, 'phase_obs_serve', card,
+                                stdin=subprocess.PIPE, stdout=self.files[0],
+                                stderr=self.files[1])
+        self.t1 = None
+
+    def stall(self):
+        """phase_obs in its process, then phase_obs_serve let go; (its
+        K1/K2 launches, its results)."""
+        stall = _obs_child(self.root, 'phase_obs', self.card,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        try:
+            out, err = stall.communicate(timeout=900)
+        finally:
+            if stall.poll() is None:
+                stall.kill()
+                stall.wait()
+        res = _obs_child_result('telemetry', stall, out, err)
+        self.t1 = time.perf_counter()
+        try:
+            self.serve.stdin.write('go\n')
+            self.serve.stdin.close()
+        except BrokenPipeError:
+            pass                       # it ended early: its code says why
+        return res['launches'], res['obs']
+
+    def finish(self, obs):
+        """Wait for phase_obs_serve; its result and both processes'
+        seconds go into `obs`."""
+        try:
+            self.serve.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            pass
+        for f in self.files:
+            f.seek(0)
+        obs['debug_profile'] = _obs_child_result(
+            '/debug/profile', self.serve, self.files[0].read(),
+            self.files[1].read())['obs']
+        obs['process_s'] = [self.t1 - self.t0,
+                            time.perf_counter() - self.t1]
+        self.stop()
+
+    def stop(self):
+        if self.serve.poll() is None:
+            self.serve.kill()
+            self.serve.wait()
+        for f in self.files:
+            f.close()
+        shutil.rmtree(self.logs, ignore_errors=True)
+
+
+def phase_obs_serve(dev, card):
+    """Phase 9c (d), in a process of its own (ObsProcesses): once a
+    line comes on the standard input, BiSeNetv2's serving engine at
+    512x1024 x8 behind the HTTP server under ?raw=1 traffic: POST
+    /debug/profile?ms=500 answers 200 with a complete profile, busy
+    share above 0, and an overlapping POST 409. Launches neither K1 nor
+    K2."""
+    torch.ones(1, device=dev).sum().item()     # the card reached
+    check(sys.stdin.readline() == 'go\n', 'phase 9c (d) was not started')
+    t0 = time.perf_counter()
+    out = _debug_profile_under_traffic()
+    out['seconds'] = time.perf_counter() - t0
+    return {'resize_argmax': 0, 'confusion_matrix': 0}, out
+
+
+def phase_obs(dev, card):
+    """The telemetry checks of phase 9c, run in a process of their own
+    (ObsProcesses). (a) a FastSCNN run() on the card (1 epoch of 6 steps,
+    val_best's validation) whose loader stalls once past the watchdog's
+    deadline: one stall event with every thread's stack and the capture
+    window's top device ops; (b) a torch.profiler capture around one
+    validate() of that trainer names K1's and K2's kernels under their own
+    buckets ((c), tools/torch_profile_step.py, is phase 9b; (d),
+    /debug/profile, phase_obs_serve). K1/K2 launches of (a) and (b)
+    counted; each part's seconds."""
+    from rtseg_tpu_torch.config import SegConfig
+    from rtseg_tpu_torch.obs.profile import Capture, parse_trace
+    from rtseg_tpu_torch.train import SegTrainer
+    out = {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_obs_')
+    try:
+        cfg = SegConfig(**STALL_RUN, watchdog_min_s=STALL_MIN_S,
+                        save_dir=os.path.join(tmp, 'stall')).resolve()
+        trainer = SegTrainer(cfg)
+        events_path = os.path.join(cfg.obs_dir, 'events-000.jsonl')
+
+        def stall_written() -> bool:
+            with open(events_path) as f:
+                return '"event": "stall"' in f.read()
+        stall = _DeviceStall(trainer.train_loader, STALL_AT, STALL_S,
+                             lambda: trainer.state.step, stall_written)
+        trainer.train_loader = stall
+        n_val = len(trainer.val_loader)
+        t0 = time.perf_counter()
+        score, n = _counted(trainer.run)
+        wall = time.perf_counter() - t0
+        check(n == {'resize_argmax': n_val, 'confusion_matrix': n_val},
+              f'stall run launches {n}')
+        launches = dict(n)
+        with open(os.path.join(cfg.obs_dir, 'events-000.jsonl')) as f:
+            events = [json.loads(line) for line in f]
+        stalls = [e for e in events if e['event'] == 'stall']
+        check(len(stalls) == 1, f'stall events: {len(stalls)} '
+              f'{[(e["step"], e["elapsed_s"]) for e in stalls]}')
+        st = stalls[0]
+        ops = st['top_device_ops'] or []
+        # the main thread waits for the batch; the prefetch thread is in
+        # the stalled loader's __iter__
+        threads = ('MainThread', 'segscope-watchdog', 'in __iter__')
+        check(st['step'] == STALL_AT
+              and all(t in st['stacks'] for t in threads),
+              f'the stall after step {st["step"]}, stacks of '
+              f'{st["stacks"].count("--- thread")} threads')
+        check(ops and 'spin_kernel' in ops[0]['name']
+              and 'lost_launches' not in st,
+              f'the stall\'s top device ops: {ops}, lost launches '
+              f'{st.get("lost_launches", 0)}')
+        out['stall'] = {'step': st['step'], 'elapsed_s': st['elapsed_s'],
+                        'written_after_s': st['ts'] - stall.started,
+                        'deadline_s': st['deadline_s'],
+                        'top_device_ops': ops, 'run_wall_s': wall,
+                        'stack_threads': st['stacks'].count('--- thread')}
+        say(f'obs (a) seeded stall ({card}): FastSCNN run() of 6 steps, '
+            f'batch {STALL_AT + 1} late until the stall event was written '
+            f'(the card in sleep kernels): one stall event after step '
+            f'{st["step"]} written {st["ts"] - stall.started:.2f} s into the '
+            f'stall, no beat '
+            f'for {st["elapsed_s"]} s against a {st["deadline_s"]} s '
+            f'deadline, '
+            f'{out["stall"]["stack_threads"]} threads\' stacks, top device '
+            f'ops {[(o["name"][:48], o["ms"]) for o in ops[:2]]}; run() '
+            f'{wall:.2f} s, mIoU {score:.4f}')
+
+        # (b) a capture around one validate(): K1 and K2 reach the trace
+        tmp_trace = os.path.join(tmp, 'validate')
+        torch.cuda.synchronize()
+        cap = Capture()
+        try:
+            _, n = _counted(trainer.validate)
+        finally:
+            cap.stop(tmp_trace)
+        check(n == {'resize_argmax': n_val, 'confusion_matrix': n_val},
+              f'captured validate launches {n}')
+        launches = {k: launches[k] + n[k] for k in launches}
+        prof = parse_trace(tmp_trace, depth=1)
+        cats = prof.categories
+        check(prof.device_track and cats.get('resize_argmax', 0) > 0
+              and cats.get('confusion_matrix', 0) > 0,
+              f'K1/K2 buckets in the validate capture: {sorted(cats)}')
+        out['validate_capture'] = {
+            'busy_ms': prof.busy_us / 1e3, 'busy_frac': prof.busy_frac,
+            'resize_argmax_ms': cats.get('resize_argmax', 0.0) / 1e3,
+            'confusion_matrix_ms': cats.get('confusion_matrix', 0.0) / 1e3,
+            'categories_ms': {k: v / 1e3 for k, v in cats.items()}}
+        say(f'obs (b) torch.profiler around validate() ({n_val} batches of '
+            f'{STALL_RUN["val_bs"]} at {STALL_RUN["crop_size"]}^2, '
+            f'{card}): busy {prof.busy_us / 1e3:.3f} ms '
+            f'({100 * prof.busy_frac:.1f}% of the window); K1 '
+            f'(resize_argmax) '
+            f'{out["validate_capture"]["resize_argmax_ms"]:.4f}'
+            f' ms, K2 (confusion_matrix) '
+            f'{out["validate_capture"]["confusion_matrix_ms"]:.4f} ms; '
+            + '; '.join(f'{k} {v / 1e3:.3f}' for k, v in sorted(
+                cats.items(), key=lambda kv: -kv[1])[:6]))
+        del trainer
+        torch.cuda.empty_cache()
+        return launches, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ----------------------------------------------------------------- phase 10
 SERVE_BUCKETS = ((512, 1024), (1024, 2048))   # the flagship's buckets
 SERVE_BATCH = 8
@@ -2895,10 +3607,12 @@ SERVE_CPU = (256, 512)                  # card against the CPU, float32
 # top-2 logit gap exceeds this; below it the two argmaxes may part by
 # rounding alone (cuDNN against the CPU's kernels)
 SERVE_GAP = 1e-3
-# the bench's doubling search: cut from (8, 16, 32, 64) to keep the
-# script within its time limit (64 was sustained in one of five runs)
-SERVE_RATES = (8, 16, 32)
-SERVE_WINDOW_S = 15.0                   # seconds of arrivals at each rate
+# the bench's search: cut from (8, 16, 32, 64) to keep the script within
+# its time limit (64 was sustained in one of five runs, 16 in every run)
+SERVE_RATES = (8, 32)
+# seconds of arrivals at each rate: cut from 15 to keep the script
+# within its time limit
+SERVE_WINDOW_S = 10.0
 SERVE_P95_MS = 1000.0                   # --check's p95 gate (its default)
 SERVE_SEARCH_S = 120.0                  # the search's budget
 PREDICT_SHAPES = ((1024, 2048), (720, 1280), (512, 1024))
@@ -3091,8 +3805,9 @@ def _load_tool(name: str):
 
 
 def _serve_http_checks(engine, out, tmp):
-    """(b) tools/torch_segserve.py bench --check --via-http at doubling
-    rates, SERVE_WINDOW_S of arrivals each, up to the first rate that is
+    """(b) tools/torch_segserve.py bench --check --via-http at the rising
+    rates of SERVE_RATES, SERVE_WINDOW_S of arrivals each, up to the
+    first rate that is
     not sustained; then ?raw=1 masks under a full pipeline against
     engine.run."""
     import urllib.request
@@ -3243,6 +3958,68 @@ def _serve_http_checks(engine, out, tmp):
         f'engine.run on its image')
 
 
+def _post_json(url: str):
+    """(status, JSON body) of an empty POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=b'', method='POST')
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _debug_profile_checks(base: str, fresh: bool = True) -> dict:
+    """POST /debug/profile?ms=500 while ?raw=1 requests are in flight,
+    and a second POST while that one captures: 409. In a process whose
+    first profiler session this capture is (`fresh`), the first answers
+    200 with a complete profile of the card (busy share above 0). In a
+    process that has profiled for minutes, the capture from the HTTP
+    handler's thread may lose the traffic's kernels (ROADMAP Queue 3):
+    then it must answer 503 naming the lost launches, and otherwise 200
+    with a complete profile, never 200 with a short one."""
+    from rtseg_tpu_torch.obs.profile import _CAPTURE_LOCK
+    first = {}
+    th = threading.Thread(target=lambda: first.update(
+        zip(('code', 'ev'), _post_json(base + '/debug/profile?ms=500'))))
+    th.start()
+    deadline = time.monotonic() + 30
+    while not _CAPTURE_LOCK.locked() and time.monotonic() < deadline:
+        time.sleep(0.002)
+    code2, ev2 = _post_json(base + '/debug/profile?ms=50')
+    th.join(timeout=120)
+    check(not th.is_alive(), 'the /debug/profile request did not return')
+    ev, code = first['ev'], first['code']
+    lost = ev.get('lost_launches', 0)
+    complete = (code == 200 and ev['event'] == 'profile'
+                and ev['device_track'] and ev['busy_frac'] > 0
+                and ev['n_ops'] > 0 and not lost)
+    detected = (code == 503 and ev['event'] == 'profile' and lost > 0
+                and 'lost the device work' in ev.get('error', ''))
+    check(complete or (detected and not fresh),
+          f'/debug/profile under traffic ({"a fresh" if fresh else "an aged"}'
+          f' process): {first}')
+    check(code2 == 409, f'an overlapping /debug/profile: {code2} {ev2}')
+    res = {k: ev[k] for k in ('window_ms', 'device_busy_ms', 'idle_ms',
+                              'busy_frac', 'n_ops', 'categories',
+                              'modules', 'top_ops')}
+    res.update(code=code, lost_launches=lost)
+    where = ("the process's first profiler session" if fresh
+             else 'a process that has profiled since phase 5')
+    say(f'obs (d) POST /debug/profile?ms=500 under ?raw=1 traffic '
+        f'({where}): {code}'
+        + (f' naming {lost} launches whose kernels the trace lost, '
+           if lost else ', ')
+        + f'{ev["n_ops"]} device ops over {ev["window_ms"]:.1f} ms, '
+        f'busy {ev["device_busy_ms"]:.1f} ms = busy share '
+        f'{ev["busy_frac"]:.4f} (idle share {1 - ev["busy_frac"]:.4f}); '
+        f'by category {dict(list(ev["categories"].items())[:5])}; '
+        f'modules {ev["modules"] or "none (graph replays)"}; an '
+        f'overlapping POST: {code2}')
+    return res
+
+
 def _serve_predict_checks(dev, out, tmp):
     """(c) main_torch --is_testing on 6 PNGs at 3 shapes from a port
     best.ckpt; masks against the engine, blends at the image's size."""
@@ -3322,6 +4099,10 @@ def phase_serve(dev):
     try:
         engine = _serve_engine_checks(dev, out)
         _serve_http_checks(engine, out, tmp)
+        # the on-demand capture in this aged process: complete, or a 503
+        # that names what its trace lost (ROADMAP Queue 3)
+        out['debug_profile'] = _debug_profile_under_traffic(engine,
+                                                            fresh=False)
         del engine
         torch.cuda.empty_cache()
         _serve_predict_checks(dev, out, tmp)
@@ -3979,6 +4760,61 @@ def _wait_pair(procs, total, t0):
     return {k: wall['s'] for k, (_, _, _, (_, wall)) in procs.items()}
 
 
+class DdpPairs:
+    """Phase 12 (b)'s two pairs of main_torch.py runs (`_start_pair`: the
+    NCCL world of one and the run without a launcher, to 2 epochs, then
+    resumed to 3), run in a thread from their start: main() starts them
+    after phase 6, so that they run beside phases 6b and 6c, and
+    phase_ddp reads them. stop() ends what still runs and removes their
+    files."""
+
+    def __init__(self, dev):
+        self.tmp = tempfile.mkdtemp(prefix='chip_smoke_ddp_pairs_')
+        self.extra = [] if dev.type == 'cuda' else ['--device', 'cpu']
+        self.pair = self.dirs = self.error = self.seconds = None
+        self.walls = {}
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for total in (2, 3):
+                t0 = time.perf_counter()
+                self.pair = _start_pair(self.tmp, self.extra, total)
+                for k, v in _wait_pair(self.pair, total, t0).items():
+                    self.walls.setdefault(k, []).append(v)
+                self.dirs = {k: d for k, (_, _, d, _) in self.pair.items()}
+                self.pair = None
+        except BaseException as e:          # result() raises it
+            self.error = e
+        self.seconds = time.perf_counter() - self.t0
+
+    def result(self):
+        """({launcher: [its walls]}, {launcher: its save_dir}, the seconds
+        from the start to the second pair's end); a pair's failure fails
+        here."""
+        self.thread.join(2 * DDP_TIMEOUT_S)
+        check(not self.thread.is_alive(),
+              f'the main_torch.py pairs: not within {2 * DDP_TIMEOUT_S} s')
+        if self.error is not None:
+            raise self.error
+        return self.walls, self.dirs, self.seconds
+
+    def stop(self):
+        pair, self.pair = self.pair, None
+        for proc, log, _, _ in (pair or {}).values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def _counts_file(tmp, launcher, total):
     return os.path.join(tmp, f'{launcher}_{total}.launches.json')
 
@@ -4020,11 +4856,12 @@ def _same_files(a, b, name):
     return meta_a == meta_b and equal(sa, sb)
 
 
-def phase_ddp(dev, card, one_rank_step_ms):
+def phase_ddp(dev, card, one_rank_step_ms, pairs):
     """Phase 12, data parallel on the one card: (a) two gloo ranks
     (spawned) against one process; (b) an NCCL world of one under
-    torch.distributed.run against main_torch.py without a launcher; (c)
-    every child's K1/K2 launches, added to the phase's."""
+    torch.distributed.run against main_torch.py without a launcher, read
+    from `pairs` (DdpPairs, started after phase 6); (c) every child's
+    K1/K2 launches, added to the phase's."""
     from rtseg_tpu_torch.models import get_model
     from rtseg_tpu_torch.ops.fused_head import resize_argmax
     from rtseg_tpu_torch.ops.pallas_metrics import confusion_matrix_pallas
@@ -4039,19 +4876,13 @@ def phase_ddp(dev, card, one_rank_step_ms):
     out = {}
     launches = {'resize_argmax': 0, 'confusion_matrix': 0}
     tmp = tempfile.mkdtemp(prefix='chip_smoke_ddp_')
-    extra = [] if card_run else ['--device', 'cpu']
-    pair = None
     try:
-        # (a) two gloo ranks sharing the card, against one process; once
-        # the ranks have timed their step, (b)'s first pair runs beside
-        # them (the phase's wall is mostly processes starting)
+        # (a) two gloo ranks sharing the card, against one process
         variables = random_jax_variables(get_model(_ddp_small()), seed=1)
         t0 = time.perf_counter()
         procs, outs, save_dir = _start_ranks(variables, tmp, device, sizes)
         _until(lambda: all(os.path.exists(o + '.timed') for o in outs),
                procs, t0, 'the ranks\' timed steps')
-        t_pair = time.perf_counter()
-        pair = _start_pair(tmp, extra, 2)
         ranks = _join_ranks(procs, outs, t0)
         ranks_s = time.perf_counter() - t0
         one = _card_vs_cpu_runs(variables, (dev.type,),
@@ -4139,14 +4970,9 @@ def phase_ddp(dev, card, one_rank_step_ms):
             'grad_bytes': r0['grad_bytes']}
 
         # (b) an NCCL world of one against no launcher, side by side
-        walls = {k: [v] for k, v in _wait_pair(pair, 2, t_pair).items()}
-        t0 = time.perf_counter()
-        pair = _start_pair(tmp, extra, 3)
-        for k, v in _wait_pair(pair, 3, t0).items():
-            walls[k].append(v)
-        dirs = {k: d for k, (_, _, d, _) in pair.items()}
-        pair, pair_s = None, time.perf_counter() - t_pair
-        logs = {k: _read_run(tmp, k, d, (2, 3)) for k, d in dirs.items()}
+        walls, dirs, pair_s = pairs.result()
+        logs = {k: _read_run(pairs.tmp, k, d, (2, 3))
+                for k, d in dirs.items()}
         (l_nccl, k_nccl, g_nccl), (l_plain, k_plain, g_plain) = (
             logs['torchrun'], logs['plain'])
         kind = 'nccl' if card_run else 'gloo'
@@ -4173,21 +4999,12 @@ def phase_ddp(dev, card, one_rank_step_ms):
             f'and best.ckpt equal bit for bit; K1/K2 launches {k_nccl} in '
             f'each; walls torchrun {[round(w, 1) for w in walls["torchrun"]]}'
             f' s, plain {[round(w, 1) for w in walls["plain"]]} s ('
-            f'{pair_s:.1f} s side by side, the first pair beside (a))')
+            f'{pair_s:.1f} s side by side, beside phases 6b and 6c)')
         out['nccl_one'] = {'losses': l_nccl, 'walls_s': walls,
                            'launches': k_nccl}
         out['launches'] = launches
     finally:
-        if pair is not None:
-            for proc, log, _, _ in pair.values():
-                if proc.poll() is None:
-                    proc.terminate()
-                    try:
-                        proc.wait(timeout=30)
-                    except subprocess.TimeoutExpired:
-                        proc.kill()
-                        proc.wait()
-                log.close()
+        pairs.stop()
         # the spawn context's resource tracker
         from rtseg_tpu_torch.data.segpipe import shutdown
         shutdown()
@@ -4516,7 +5333,7 @@ class HostJobs:
             initargs=(19,))
         self.zoo = {name: self.pool.apply_async(
                         _zoo_cpu_run, ((kw, samples, self.tmp),))
-                    for name, kw, _, samples in ZOO}
+                    for name, kw, _, samples in zoo_cpu_order()}
         self.pending = self.pool.map_async(_export_hard, self.jobs)
         self.done = self.wall = None
 
@@ -4672,8 +5489,9 @@ def main() -> int:
     dev = torch.device('cuda')
     start = time.perf_counter()
     # phase 6's CPU references and phase 13 (d)'s exports run on the
-    # host's idle cores from here on
+    # host's idle cores from here on; a failed phase stops them too
     host = HostJobs()
+    atexit.register(host.close)
 
     def elapsed(phase):
         say(f'elapsed {time.perf_counter() - start:.1f} s at the end of '
@@ -4687,8 +5505,11 @@ def main() -> int:
     elapsed('4 (eval slice)')
     train_launches, train = phase_train(dev, card)
     elapsed('5 (train)')
-    zoo_launches, zoo = phase_zoo(dev, card, imgs, msks, host)
-    elapsed('6 (zoo)')
+    zoo_launches, zoo = phase_zoo_split(dev, card, imgs, msks, host)
+    elapsed('6 (zoo, two processes)')
+    # phase 12 (b)'s main_torch.py runs, beside phases 6b and 6c
+    pairs = DdpPairs(dev)
+    atexit.register(pairs.stop)
     kd_launches, kd = phase_kd(dev, card, imgs, msks)
     elapsed('6b (KD)')
     optim_launches, optim = phase_optim(dev, card, imgs, msks)
@@ -4698,17 +5519,27 @@ def main() -> int:
     host.collect()              # before phase 9's segpipe.shutdown()
     main_launches, main_run = phase_main(dev, card)
     elapsed('9 (main)')
+    profile_step = phase_profile_step(card)
+    elapsed('9b (torch_profile_step)')
+    obs_run = ObsProcesses(card)
+    atexit.register(obs_run.stop)
+    obs_launches, obs = obs_run.stall()
+    obs['profile_step'] = profile_step
+    elapsed('9c (a, b) (telemetry, a process of its own)')
+    jpeg_launches, jpeg = phase_jpeg(dev, card)
+    elapsed('11 (JPEG, Custom and migration; beside 9c (d))')
+    obs_run.finish(obs)
+    elapsed('9c (d) (/debug/profile, a process of its own)')
     serve = phase_serve(dev)
     elapsed('10 (serve)')
-    jpeg_launches, jpeg = phase_jpeg(dev, card)
-    elapsed('11 (JPEG, Custom and migration)')
-    ddp_launches, ddp = phase_ddp(dev, card, train['step_ms'])
+    ddp_launches, ddp = phase_ddp(dev, card, train['step_ms'], pairs)
     elapsed('12 (data parallel)')
     export = phase_export(dev, host)
     elapsed('13 (export and int8)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
-                + optim_launches[k] + main_launches[k] + jpeg_launches[k]
-                + ddp_launches[k] for k, v in launches.items()}
+                + optim_launches[k] + main_launches[k] + obs_launches[k]
+                + jpeg_launches[k] + ddp_launches[k]
+                for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
     # the KD teacher's and student's runs (DeepLabV3+: 1/4 logits), 2 each
@@ -4721,9 +5552,13 @@ def main() -> int:
             'confusion_matrix': 15 + 2 * len(ZOO)}
     converge = 2 * (CONVERGE_HALF // 2 + 1) * 4
     # phase 12: 2 for each gloo rank, 2 for the one-process validate of
-    # their best.ckpt, 5 for each main_torch.py run (torchrun and plain)
+    # their best.ckpt, 5 for each main_torch.py run (torchrun and plain);
+    # phase 9c: the stall run's val_best and the captured validate, a
+    # val batch each (FastSCNN's logits are 1/8: K1 too)
+    obs_val = -(-max(16, STALL_RUN['synthetic_len'] // 4)
+                // STALL_RUN['val_bs'])
     want = {k: v + 5 + 3 + converge + 5 + 2 * DDP_WORLD + 2 + 2 * 5
-            for k, v in want.items()}
+            + 2 * obs_val for k, v in want.items()}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
@@ -4736,6 +5571,7 @@ def main() -> int:
     say(json.dumps({'optim': optim}))
     say(json.dumps({'import': imports}))
     say(json.dumps({'main': main_run}))
+    say(json.dumps({'obs': obs}))
     say(json.dumps({'serve': serve}))
     say(json.dumps({'jpeg': jpeg}))
     say(json.dumps({'ddp': ddp}))

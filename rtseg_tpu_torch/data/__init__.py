@@ -90,13 +90,13 @@ def get_loader(config):
         drop_last=True, ignore_index=config.ignore_index,
         process_index=pi, process_count=pc,
         workers=config.base_workers, cache=train_cache, raw_tail=raw,
-        emit_flags=True, mp_workers=config.aug_workers)
+        emit_flags=True, mp_workers=config.aug_workers, tag='train')
     val_loader = ShardedLoader(
         val_ds, global_val, seed=config.random_seed, shuffle=False,
         drop_last=False, ignore_index=config.ignore_index,
         process_index=pi, process_count=pc,
         workers=config.base_workers, cache=val_cache, raw_tail=raw,
-        emit_flags=False, mp_workers=config.aug_workers)
+        emit_flags=False, mp_workers=config.aug_workers, tag='val')
     return train_loader, val_loader
 
 

@@ -18,7 +18,11 @@ ShardedLoader).
   * batches are made by a producer thread, its samples on a thread pool
     (``workers``; numpy and the native library release the GIL) or in
     segpipe's worker processes over a shared-memory ring
-    (``mp_workers``), both byte-identical to serial production.
+    (``mp_workers``), both byte-identical to serial production;
+  * with an event sink set (obs/core.py, the trainer's run()), each
+    batch's production is a ``data/produce`` span and each epoch ends
+    with one ``cache`` event (its ``tag``, the epoch, the packed cache's
+    hits and misses), as in the JAX package.
 
 Batches are tuples of CPU tensors (torch.from_numpy of the numpy batch):
 NHWC float32 or uint8 images, [B, H, W] int32 labels and, on raw-tail
@@ -35,6 +39,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import get_sink, span
 from .segpipe import AugmentPool, PackedCache, SampleSource, assemble_batch
 from .segpipe.source import sample_rngs
 
@@ -46,7 +51,7 @@ class ShardedLoader:
                  process_count: int = 1, prefetch: int = 2, workers: int = 0,
                  cache: Optional[PackedCache] = None,
                  raw_tail: bool = False, emit_flags: bool = True,
-                 mp_workers: int = 0):
+                 mp_workers: int = 0, tag: str = 'train'):
         if global_batch % process_count:
             raise ValueError(f'global batch {global_batch} does not split '
                              f'over {process_count} processes')
@@ -64,6 +69,7 @@ class ShardedLoader:
         # producer. mp_workers > 0 takes worker processes instead
         self.workers = workers
         self.mp_workers = mp_workers
+        self.tag = tag
         self.source = SampleSource(dataset, cache=cache, raw_tail=raw_tail)
         self.raw_tail = raw_tail
         self.emit_flags = emit_flags and raw_tail
@@ -149,7 +155,13 @@ class ShardedLoader:
 
     def _count_cache(self, extra_hits: int = 0, extra_misses: int = 0):
         h, m = self.source.take_counts()
-        self.last_cache_counts = (h + extra_hits, m + extra_misses)
+        h, m = h + extra_hits, m + extra_misses
+        self.last_cache_counts = (h, m)
+        sink = get_sink()
+        if sink is not None and (h or m):
+            sink.emit({'event': 'cache', 'tag': self.tag,
+                       'epoch': self.epoch, 'hits': h, 'misses': m,
+                       'cached': self.source.cache is not None})
 
     # ------------------------------------------------------------- iteration
     def _iter_mp(self) -> Iterator[tuple]:
@@ -169,8 +181,9 @@ class ShardedLoader:
         try:
             it = pool.run(work)
             for b, idxs in slices:
-                batch = (self._dummy_batch(self._sample_rngs(b)[0])
-                         if len(idxs) == 0 else next(it))
+                with span('data/produce'):
+                    batch = (self._dummy_batch(self._sample_rngs(b)[0])
+                             if len(idxs) == 0 else next(it))
                 yield self._strip(batch)
         finally:
             self._count_cache(probe_h + pool.hits, probe_m + pool.misses)
@@ -195,8 +208,11 @@ class ShardedLoader:
         def producer(q: queue.Queue):
             try:
                 for b, local_idx in slices:
-                    batch = self._make_batch(local_idx,
-                                             self._sample_rngs(b), pool)
+                    # the producer's time a batch; the consumer's wait is
+                    # the trainer's StepCollector's data wait
+                    with span('data/produce'):
+                        batch = self._make_batch(local_idx,
+                                                 self._sample_rngs(b), pool)
                     if not put(q, self._strip(batch)):
                         return                  # the consumer went away
                 put(q, None)

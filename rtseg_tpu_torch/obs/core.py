@@ -1,12 +1,14 @@
-"""Spans and the JSONL event sink (counterpart of rtseg_tpu/obs/core.py:
-the parts serving and prediction use).
+"""Spans, the JSONL event sink and the memory events (counterpart of
+rtseg_tpu/obs/core.py).
 
 A *span* times a host region: it emits ``{"event": "span", "name", "ts",
 "dur_s", "depth"}`` to the process-global :class:`EventSink` (one JSONL
-file under the run's directory) and mirrors the name into an active
-torch.profiler trace through ``torch.profiler.record_function``, where the
-JAX package uses ``jax.profiler.TraceAnnotation``. Device memory
-watermarks come from ``torch.cuda.memory_stats``.
+file a process under the run's directory, ``events-<rank>.jsonl``) and
+mirrors the name into an active torch.profiler trace through
+``torch.profiler.record_function``, where the JAX package uses
+``jax.profiler.TraceAnnotation``. Device memory watermarks come from
+``torch.cuda.memory_stats`` under the JAX package's key names;
+``emit_memory`` writes them as one ``memory`` event.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
 import torch
+
+from ..parallel.mesh import process_index
 
 
 class EventSink:
@@ -114,11 +118,14 @@ def span(name: str, record: bool = True, **attrs: Any) -> Iterator[None]:
 
 def init_run(obs_dir: str, meta: Optional[Dict[str, Any]] = None
              ) -> EventSink:
-    """This process's event sink under ``obs_dir``
-    (``events-000.jsonl``: the port runs one process), opened with a
-    ``run_start`` event. Files append across restarts."""
-    sink = EventSink(os.path.join(obs_dir, 'events-000.jsonl'),
-                     static={'host': 0})
+    """This process's event sink under ``obs_dir``, named by its rank in
+    the process group (``events-000.jsonl`` without one;
+    parallel/mesh.py process_index), opened with a ``run_start`` event.
+    Files append across restarts; tools/torch_segscope.py reports the
+    segment after the last run_start by default."""
+    host = process_index()
+    sink = EventSink(os.path.join(obs_dir, f'events-{host:03d}.jsonl'),
+                     static={'host': host})
     ev: Dict[str, Any] = {'event': 'run_start'}
     if meta:
         ev.update(meta)
@@ -131,17 +138,72 @@ _MEMORY_KEYS = {'bytes_in_use': 'allocated_bytes.all.current',
                 'peak_bytes_in_use': 'allocated_bytes.all.peak',
                 'bytes_reserved': 'reserved_bytes.all.current'}
 
+#: the keys of a ``memory`` event: the JAX package's watermark names
+_EVENT_KEYS = ('bytes_in_use', 'peak_bytes_in_use', 'bytes_limit',
+               'largest_alloc_size')
+
+
+def _card() -> Optional[int]:
+    """The current card's index, or None without CUDA or before CUDA is
+    initialized (reading the watermarks does not initialize it)."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return None
+    return torch.cuda.current_device()
+
 
 def read_memory_stats() -> Dict[str, int]:
-    """Card 0's allocator watermarks, with ``bytes_limit`` its memory;
-    empty without CUDA or before CUDA is initialized (reading them does
-    not initialize it)."""
-    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+    """The current card's allocator watermarks, with ``bytes_limit`` its
+    memory; empty without CUDA or before CUDA is initialized."""
+    card = _card()
+    if card is None:
         return {}
-    stats = torch.cuda.memory_stats(0)
+    stats = torch.cuda.memory_stats(card)
     out = {k: int(stats[v]) for k, v in _MEMORY_KEYS.items() if v in stats}
-    out['bytes_limit'] = int(torch.cuda.get_device_properties(0).total_memory)
+    out['bytes_limit'] = int(
+        torch.cuda.get_device_properties(card).total_memory)
     return out
+
+
+def largest_segment_bytes(card: int) -> int:
+    """The largest segment the caching allocator holds on ``card``
+    (torch.cuda.memory_snapshot), the port's ``largest_alloc_size``.
+
+    XLA reports the largest single allocation; PyTorch's statistics keep
+    no such figure (``segment.all.peak`` counts segments, not bytes). An
+    allocation lives inside one segment, and an allocation above the
+    allocator's 1 MiB small-block limit gets a segment of its own rounded
+    up to 2 MiB, so the largest segment is the largest allocation alive
+    (or freed but still cached) within a rounding. 0 without segments."""
+    sizes = [seg['total_size'] for seg in torch.cuda.memory_snapshot()
+             if seg.get('device', card) == card]
+    return int(max(sizes, default=0))
+
+
+def emit_memory(sink: Optional[EventSink]) -> None:
+    """One ``memory`` event of the current card's watermarks, under the
+    JAX package's keys (bytes_in_use, peak_bytes_in_use, bytes_limit,
+    largest_alloc_size); nothing without a sink, without CUDA or before
+    CUDA is initialized, as the JAX package writes nothing on a backend
+    without memory_stats."""
+    if sink is None:
+        return
+    card = _card()
+    if card is None:
+        return
+    stats = read_memory_stats()
+    stats['largest_alloc_size'] = largest_segment_bytes(card)
+    keep = {k: stats[k] for k in _EVENT_KEYS if k in stats}
+    sink.emit({'event': 'memory', 'device': f'cuda:{card}', **keep})
+
+
+def cache_size(step: Any) -> Optional[int]:
+    """A step's count of distinct input signatures (the ``_cache_size``
+    that train/step.py's builders attach), the port's counterpart of the
+    JAX jit-cache size; None for a callable without one."""
+    size_fn = getattr(step, '_cache_size', None)
+    if size_fn is None:
+        return None
+    return int(size_fn())
 
 
 def update_memory_gauges(registry: Any,

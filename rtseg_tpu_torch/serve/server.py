@@ -23,10 +23,17 @@ API:
     card's memory watermarks refreshed at each scrape.
   * ``POST /debug/flight``: dump the pipeline's flight recorder to the
     event sink and return the summary, records included.
-  * ``POST /debug/profile`` answers 501: the on-demand profiler capture
-    (obs/profile.py) is not ported (ROADMAP.md Queue 1, "The planes").
+  * ``POST /debug/profile?ms=N``: a torch.profiler capture of N ms
+    (10..5000, default 100) under live traffic (obs/profile.py
+    capture_window), answered 200 with the parsed ``profile`` event
+    (device busy share, time by category, top ops; the replayed CUDA
+    graphs' kernels carry no module), which also goes to the event sink;
+    503 with the same body and an ``error`` where the trace lost the
+    device work of some launches (``lost_launches``; late in a process's
+    life, obs/profile.py), 409 while another capture holds the profiler,
+    400 for an ``ms`` that is not a finite number.
     The streaming session plane is not mounted (``stream_config``
-    raises, naming the same item).
+    raises, naming ROADMAP.md Queue 1, "The planes").
 
 Every request gets a trace id at ingress (a well-formed inbound
 ``X-Trace-Id`` is honoured), echoed in the ``X-Trace-Id`` response header
@@ -50,8 +57,9 @@ import numpy as np
 
 from ..config import not_ported
 from ..data import image, png
-from ..obs.core import update_memory_gauges
+from ..obs.core import get_sink, update_memory_gauges
 from ..obs.metrics import render_prometheus
+from ..obs.profile import CaptureBusy, capture_window
 from ..obs.tracing import TRACE_KEY, new_trace_id, valid_trace_id
 from .batcher import ServeDrop, ServeReject
 from .engine import UnknownBucket
@@ -228,9 +236,7 @@ class _Handler(BaseHTTPRequestHandler):
         tid = inbound if valid_trace_id(inbound) else new_trace_id()
         trace_hdr = {TRACE_HEADER: tid}
         if path == '/debug/profile':
-            self._send_json(501, {'error': str(not_ported(
-                'the on-demand profiler capture (obs/profile.py)',
-                'The planes'))}, trace_hdr)
+            self._debug_profile(trace_hdr)
             return
         if path == '/debug/flight':
             self._debug_flight(data, trace_hdr)
@@ -351,6 +357,58 @@ class _Handler(BaseHTTPRequestHandler):
                             trace_hdr)
             return
         self._send_json(200, out, trace_hdr)
+
+    def _debug_profile(self, trace_hdr: dict) -> None:
+        """On-demand capture under live traffic (obs/profile.py
+        capture_window): trace for ?ms= of wall clock, return the parsed
+        breakdown as JSON. One capture at a time (409 when busy), the
+        duration bounded so a mistyped request cannot trace for
+        minutes."""
+        query = urllib.parse.parse_qs(
+            urllib.parse.urlsplit(self.path).query)
+        try:
+            ms = float(query.get('ms', ['100'])[0])
+        except ValueError:
+            ms = float('nan')
+        if not math.isfinite(ms):
+            # NaN slips through the clamp below (its comparisons are
+            # False) and would serialize as invalid JSON
+            self._send_json(400, {'error': 'ms must be a finite number'},
+                            trace_hdr)
+            return
+        ms = min(max(ms, 10.0), 5000.0)
+        reg = self.server.pipeline.registry
+        try:
+            prof = capture_window(ms / 1e3)
+        except CaptureBusy as e:
+            self._send_json(409, {'error': str(e)}, trace_hdr)
+            return
+        except Exception as e:   # noqa: BLE001 — surface, don't hang
+            self._send_json(500, {'error': f'{type(e).__name__}: {e}'},
+                            trace_hdr)
+            return
+        # the live-plane metrics the sampled profiler feeds, so a /metrics
+        # scrape reconciles with this response's busy_frac; an incomplete
+        # profile's busy share is wrong and leaves the gauge alone
+        reg.counter('profile_captures_total',
+                    help='sampled/on-demand profile captures '
+                         'completed').inc()
+        if prof.complete:
+            reg.gauge('device_busy_frac',
+                      help='device busy fraction of the last profile '
+                           'capture').set(prof.busy_frac)
+        update_memory_gauges(reg)
+        ev = prof.to_event(source='debug', requested_ms=ms)
+        sink = get_sink()
+        if sink is not None:
+            sink.emit(ev)
+        if prof.complete:
+            self._send_json(200, ev, trace_hdr)
+            return
+        self._send_json(503, dict(ev, error=(
+            f'the trace lost the device work of {prof.lost_launches} '
+            f'launches: this profile is incomplete (a capture from another '
+            f'thread late in the process; ROADMAP.md Queue 3)')), trace_hdr)
 
 
 def make_server(pipeline: ServePipeline, host: str = '127.0.0.1',

@@ -66,6 +66,14 @@ them into a (C, C) int32 confusion matrix (ops/pallas_metrics.py, or the
 plain bincount) of the rank's batch; SegTrainer.validate sums the ranks'
 matrices once, at the end.
 
+Each step carries `_cache_size()`: the number of distinct (shape, dtype,
+device) signatures of the tensors it has been called with, the
+counterpart of the JAX jit-cache size that obs/collector.py reads. The
+first call of a signature is where eager PyTorch pays its one-time costs
+(cuDNN's algorithm search under cudnn.benchmark, lazy module loading, the
+first build or load of the kernels), so the step collector flags that step
+`compile` as the JAX collector flags a step that grew the jit cache.
+
 bf16 runs the way the JAX package runs it: bf16 activations, float32
 weights cast to bf16 per conv call, BatchNorm in float32 on float32
 statistics (nn/modules.py). That is explicit in the modules rather than
@@ -201,6 +209,21 @@ def dropout_seed(random_seed: int, step: int, rank: int = 0) -> int:
             + int(rank) * _GOLDEN64) % (1 << 64)
 
 
+def _signatures(step: Callable) -> Callable:
+    """Attach `step._cache_size()` and return `note(*tensors)`, which a
+    step calls with its tensor arguments (None allowed) to record their
+    signature."""
+    seen = set()
+
+    def note(*tensors) -> None:
+        seen.add(tuple(None if t is None else
+                       (tuple(t.shape), t.dtype, t.device)
+                       for t in tensors))
+
+    step._cache_size = lambda: len(seen)
+    return note
+
+
 def _running_stats(norms) -> list:
     return ([m.bn.running_mean for m in norms]
             + [m.bn.running_var for m in norms])
@@ -243,6 +266,7 @@ def build_train_step(config, norm_coeffs=None,
 
     def train_step(state: TrainState, images: torch.Tensor,
                    masks: torch.Tensor, flags: Optional[torch.Tensor] = None):
+        note(images, masks, flags)
         if norm_coeffs is not None:
             table = tables.get(images.device)
             if table is None:
@@ -293,6 +317,7 @@ def build_train_step(config, norm_coeffs=None,
             ema_mirror(model, state.ema_model)
         return state, {**metrics, 'loss': loss.detach()}
 
+    note = _signatures(train_step)
     return train_step
 
 
@@ -329,10 +354,12 @@ def build_eval_step(config, model, device, norm_coeffs=None) -> Callable:
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        note(images, masks)
         preds = _predict(model, prepare(images), dtype, fused)
         return cm_fn(preds, masks, num_class, ignore)
 
     eval_step.fused = fused
+    note = _signatures(eval_step)
     return eval_step
 
 
@@ -346,7 +373,9 @@ def build_predict_step(config, model, device, norm_coeffs=None) -> Callable:
 
     @torch.inference_mode()
     def predict_step(images: torch.Tensor) -> torch.Tensor:
+        note(images)
         return _predict(model, prepare(images), dtype, fused)
 
     predict_step.fused = fused
+    note = _signatures(predict_step)
     return predict_step

@@ -61,12 +61,29 @@ rank 0's writer has joined and a barrier has passed (load_ckpt, val_best,
 the end of run()). Prediction runs in one process: is_testing in a world
 of more than one rank raises ValueError.
 
+Telemetry (obs/), as in the JAX trainer, for the span of run(): with
+config.use_obs every rank opens its JSONL sink (save_dir/segscope/
+events-<rank>.jsonl; run_start, step, epoch, memory, profile, stall,
+run_end events), a StepCollector times each train and val iteration
+(data wait, step, the first call of an input signature flagged compile)
+and heartbeats the stall watchdog (config.watchdog, with a short
+torch.profiler window on a stall under config.obs_stall_trace), and with
+config.profile_every a SampledProfiler captures profile_capture_iters
+train steps every profile_every steps. config.profile_dir writes a
+torch.profiler trace of epoch 0's steps 1..profile_steps on rank 0, with
+module ranges (obs/profile.py). With config.use_tb rank 0 writes the
+train losses (one batched readback a log interval, averaged over the
+ranks) and each validation's mIoU and class IoUs to TensorBoard
+(utils/misc.py TBWriter). The sink, the writer and the threads open at
+run() entry and close at its end, so a trainer that is built and never
+run holds none of them.
+
 Switches of the JAX trainer that the port does not implement raise
 NotImplementedError naming the ROADMAP.md Queue 1 item that brings them:
-spatial_partition > 1 when the trainer is built, use_tb, use_obs,
-profile_dir and compile_cache in run(). recompile_guard (the JAX
-package's guard against a retrace of its compiled steps; the port's steps
-are not traced) is accepted and changes nothing.
+spatial_partition > 1 when the trainer is built, compile_cache in run().
+recompile_guard (the JAX package's guard against a retrace of its
+compiled steps; the port's steps are not traced) is accepted and changes
+nothing.
 """
 
 from __future__ import annotations
@@ -82,14 +99,17 @@ from ..config import refuse_unported
 from ..data import get_loader, get_test_loader
 from ..data.segpipe import CardCopier, DevicePrefetcher
 from ..models.registry import get_model, get_teacher_model
-from ..obs import MetricsRegistry, set_registry
+from ..obs import (MetricsRegistry, SampledProfiler, StallWatchdog,
+                   StepCollector, emit_memory, get_sink, init_run,
+                   set_registry, set_sink, span, update_memory_gauges)
+from ..obs.profile import Capture, CaptureBusy, fence
 from ..parallel import (all_reduce_mean, all_reduce_sum, backend, barrier,
                         init_multihost, is_distributed, local_device,
                         main_rank, process_count, process_index)
 from ..utils.convert import flax_init_variables, load_jax_variables
 from ..utils.metrics import iou_from_cm
-from ..utils.misc import (get_logger, log_config, mkdir, save_config,
-                          set_seed)
+from ..utils.misc import (TBWriter, get_logger, log_config, mkdir,
+                          save_config, set_seed)
 from ..utils.torch_import import import_backbone
 from .checkpoint import (AsyncCkptWriter, load_meta, restore_train_ckpt,
                          restore_weights, snapshot_state, write_best_ckpt,
@@ -105,10 +125,12 @@ _INT32_MAX = np.iinfo(np.int32).max
 # refused by __init__, and the planes, refused by run()
 _NOT_BUILT = (('spatial_partition', lambda v: v > 1, 'the spatial mesh',
                'Spatial mesh'),)
-_NOT_PORTED = (('use_tb', bool, 'TensorBoard logging', 'The planes'),
-               ('use_obs', bool, 'segscope telemetry', 'The planes'),
-               ('profile_dir', bool, 'the profiler trace', 'The planes'),
-               ('compile_cache', bool, 'the compile cache', 'The planes'))
+_NOT_PORTED = (('compile_cache', bool, 'the compile cache', 'The planes'),)
+
+# module-range depth of the profile_dir trace (obs/profile.py): deep
+# enough for MiT's attention (encoder/mit/block1_0/attn); a parse at any
+# smaller depth reads the same trace
+TRACE_DEPTH = 4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -159,9 +181,17 @@ class SegTrainer:
                              f'{self.device}')
         mkdir(config.save_dir)
         set_seed(config.random_seed)
-        # the live metrics registry: prediction's pipeline feeds it
+        # the live metrics registry: prediction's pipeline and the step
+        # collectors feed it
         self.metrics = MetricsRegistry()
         set_registry(self.metrics)
+        # run() scope: the JSONL sink, the stall watchdog, the sampled
+        # profiler and the TensorBoard writer
+        self._obs_sink = None
+        self._watchdog = None
+        self._profiler = None
+        self.writer = None
+        self._tb_live = False
         if config.is_testing:
             if process_count() > 1:
                 raise ValueError(
@@ -278,8 +308,10 @@ class SegTrainer:
     # ------------------------------------------------------------------- run
     def _put(self, batch) -> tuple:
         """A host batch on its way to the device; on the card this runs on
-        the prefetch thread and returns what `_take` finishes."""
-        return batch if self._copier is None else self._copier(batch)
+        the prefetch thread and returns what `_take` finishes. A
+        ``data/h2d`` span times it (the report's h2d row)."""
+        with span('data/h2d'):
+            return batch if self._copier is None else self._copier(batch)
 
     def _take(self, item) -> tuple:
         return item if self._copier is None else self._copier.ready(item)
@@ -290,7 +322,9 @@ class SegTrainer:
         in the loop when it is 0."""
         if self.config.device_prefetch <= 0:
             for batch in loader:
-                yield tuple(t.to(self.device) for t in batch)
+                with span('data/h2d'):
+                    batch = tuple(t.to(self.device) for t in batch)
+                yield batch
             return
         prefetcher = DevicePrefetcher(loader, self._put,
                                       depth=self.config.device_prefetch)
@@ -302,6 +336,66 @@ class SegTrainer:
             # its workers, also when a step raises
             prefetcher.close()
 
+    def _open_planes(self) -> None:
+        """The TensorBoard writer, the JSONL sink (every rank), the stall
+        watchdog and the sampled profiler, as config asks."""
+        cfg = self.config
+        self.writer = TBWriter(cfg, self.main_rank)
+        # whether any rank writes TB scalars: rank 0 alone does, and every
+        # rank must take the same path through _flush_tb's all-reduce
+        self._tb_live = cfg.use_tb and bool(all_reduce_sum(torch.tensor(
+            [float(self.writer.active)], device=self.device)).item())
+        if not cfg.use_obs:
+            return
+        self._obs_sink = init_run(cfg.obs_dir, meta={
+            'model': cfg.model, 'dataset': cfg.dataset,
+            'total_epoch': cfg.total_epoch,
+            'global_train_bs': cfg.train_bs * cfg.gpu_num,
+            'global_val_bs': cfg.val_bs * cfg.gpu_num,
+            'compute_dtype': cfg.compute_dtype,
+            'devices': cfg.gpu_num})
+        set_sink(self._obs_sink)
+        if cfg.watchdog:
+            self._watchdog = StallWatchdog(
+                self._obs_sink, min_deadline_s=cfg.watchdog_min_s,
+                factor=cfg.watchdog_factor,
+                trace_dir=(os.path.join(cfg.obs_dir, 'stall_trace')
+                           if cfg.obs_stall_trace else None),
+                logger=self.logger)
+            self._watchdog.start()
+        if cfg.profile_every > 0:
+            # every profile_every train steps capture
+            # profile_capture_iters fenced iterations and emit the parsed
+            # device-time breakdown as a 'profile' event
+            self._profiler = SampledProfiler(
+                self._obs_sink, every=cfg.profile_every,
+                iters=cfg.profile_capture_iters, jitted=self.train_step,
+                registry=self.metrics, logger=self.logger,
+                models=(self.model,))
+
+    def _close_planes(self, start: float) -> None:
+        """Tear down what _open_planes opened; run_end carries run()'s
+        wall (the goodput denominator: trainer construction excluded)."""
+        if self._profiler is not None:
+            # a step that raised mid-capture leaves a window half-open
+            self._profiler.abort()
+            self._profiler = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        if self._obs_sink is not None:
+            self._obs_sink.emit({
+                'event': 'run_end',
+                'wall_s': round(time.perf_counter() - start, 3)})
+            self._obs_sink.close()
+            if get_sink() is self._obs_sink:
+                set_sink(None)
+            self._obs_sink = None
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+            self._tb_live = False
+
     def run(self) -> float:
         cfg = self.config
         refuse_unported(cfg, _NOT_PORTED)
@@ -310,6 +404,7 @@ class SegTrainer:
             log_config(cfg, self.logger)
         start = time.perf_counter()
         try:
+            self._open_planes()
             for epoch in range(self.cur_epoch, cfg.total_epoch):
                 self.cur_epoch = epoch
                 self.train_one_epoch()
@@ -326,8 +421,11 @@ class SegTrainer:
             score = self.val_best()
         finally:
             # the last write lands, and a failed one raises, before run()
-            # returns
-            self._ckpt_writer.join()
+            # returns; a failed write does not skip the planes' teardown
+            try:
+                self._ckpt_writer.join()
+            finally:
+                self._close_planes(start)
         # no rank returns before rank 0's checkpoints are on disk
         barrier()
         return score
@@ -339,53 +437,89 @@ class SegTrainer:
         copied to the host when it was taken, so no step waits for the
         card. In a process group both are averaged over the ranks (once
         an epoch and once a log point), and images/s count the global
-        batch."""
+        batch. The StepCollector times each iteration on the host (no
+        device read), the sampled profiler and the profile_dir trace open
+        and close their windows around the steps, and the TensorBoard
+        losses are read back in one batch a log interval."""
         cfg = self.config
         self.train_loader.set_epoch(self.cur_epoch)
         nb = len(self.train_loader)
         loss_sum, kd_sum, n_steps, lag = None, None, 0, None
-        t_start = t_log = time.perf_counter()
-        wait = 0.0
+        t_start = time.perf_counter()
+        col = StepCollector(self._obs_sink, 'train',
+                            imgs_per_step=cfg.train_bs * cfg.gpu_num,
+                            jitted=self.train_step, watchdog=self._watchdog,
+                            epoch=self.cur_epoch, registry=self.metrics)
+        # event and TB step ids from the host's step count
+        step0 = self.state.step
+        tb_buf = []
+        tb_every = cfg.log_interval if cfg.log_interval > 0 else 50
+        # the profile_dir trace of epoch 0 (rank 0) owns the profiler;
+        # the sampled captures stand down meanwhile, on every rank
+        tracing = cfg.profile_dir is not None and self.cur_epoch == 0
+        sampler = None if tracing else self._profiler
+        trace, completed = None, False
         batches = self._batches(self.train_loader)
         try:
-            while True:
-                t0 = time.perf_counter()
-                # images, masks and, from a raw-tail loader, flip flags
-                batch = next(batches, None)
-                wait += time.perf_counter() - t0
-                if batch is None:
-                    break
-                i = n_steps
-                self.state, metrics = self.train_step(self.state, *batch)
+            # images, masks and, from a raw-tail loader, flip flags
+            for i, batch in enumerate(col.wrap(batches)):
+                if tracing and self.main_rank and i == 1:
+                    trace = self._start_trace()  # after the first call
+                if sampler is not None:
+                    sampler.before_step()
+                with span('train/dispatch', record=False):
+                    self.state, metrics = self.train_step(self.state,
+                                                          *batch)
                 loss = metrics['loss']
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 if 'loss_kd' in metrics:
                     kd = metrics['loss_kd']
                     kd_sum = kd if kd_sum is None else kd_sum + kd
                 n_steps += 1
+                col.end_step(step=step0 + n_steps)
+                if sampler is not None:
+                    sampler.after_step(step=step0 + n_steps)
+                if trace is not None and i == cfg.profile_steps:
+                    self._stop_trace(trace)
+                    trace = None
                 if cfg.log_interval > 0 and (i + 1) % cfg.log_interval == 0:
                     mean = _HostScalar(all_reduce_mean(loss))
                     li, ll = lag if lag is not None else (i, mean)
-                    now = time.perf_counter()
-                    ips = (cfg.log_interval * cfg.train_bs * cfg.gpu_num
-                           / (now - t_log))
-                    t_log = now
+                    ips, dwf = col.interval_stats()
                     self.logger.info(
                         f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
                         f'Iter:{li + 1}/{nb} | Loss:{ll.value():.4g} | '
-                        f'{ips:.1f} imgs/s | data-wait '
-                        f'{wait / (now - t_start):.0%} (host clock)')
+                        f'{ips:.1f} imgs/s | data-wait {dwf:.0%} (host '
+                        f'clock)')
                     lag = (i, mean)
+                if self._tb_live:
+                    tb_buf.append((step0 + n_steps, metrics))
+                    if len(tb_buf) >= tb_every:
+                        self._flush_tb(tb_buf)
+            completed = True
         finally:
             batches.close()
             self.model.eval()
+            if trace is not None:
+                # an epoch shorter than the window writes what it traced;
+                # a step that raised drops it
+                if completed:
+                    self._stop_trace(trace)
+                else:
+                    trace.abort()
+        if sampler is not None:
+            # a window opened on the epoch's last steps must not stay open
+            # across validation and checkpointing
+            sampler.finish(step=step0 + n_steps)
         if loss_sum is None:
             raise RuntimeError(
                 'Training loader yielded no batches; the dataset is smaller '
                 'than the batch size.')
+        self._flush_tb(tb_buf)
         self.epoch_losses.append(float(all_reduce_mean(loss_sum)) / n_steps)
         # the read of the loss waited for the epoch's last step
-        self.epoch_stats.append({'steps': n_steps, 'data_wait_s': wait,
+        self.epoch_stats.append({'steps': n_steps,
+                                 'data_wait_s': col.total_wait,
                                  'wall_s': time.perf_counter() - t_start})
         kd_text = ''
         if kd_sum is not None:
@@ -394,6 +528,54 @@ class SegTrainer:
             kd_text = f' | KD loss:{self.epoch_kd_losses[-1]:.4g}'
         self.logger.info(f'Epoch:{self.cur_epoch + 1}/{cfg.total_epoch} | '
                          f'Loss:{self.epoch_losses[-1]:.4g}{kd_text}')
+        if self._obs_sink is not None:
+            self._obs_sink.emit({
+                'event': 'epoch', 'epoch': self.cur_epoch, 'kind': 'train',
+                'steps': n_steps, 'mean_loss': self.epoch_losses[-1],
+                'data_wait_s': round(col.total_wait, 3),
+                'step_s': round(col.total_dur, 3),
+                'compile_s': round(col.compile_s, 3)})
+            emit_memory(self._obs_sink)
+        # the card's memory watermarks onto the live plane (nothing
+        # without CUDA)
+        update_memory_gauges(self.metrics)
+
+    def _start_trace(self) -> Optional[Capture]:
+        """Open the profile_dir trace (module ranges on the model), or
+        None with a warning when another capture holds the profiler."""
+        fence()
+        try:
+            return Capture((self.model,), TRACE_DEPTH)
+        except CaptureBusy as e:
+            self.logger.warning(f'profile_dir: no trace written ({e})')
+            return None
+
+    def _stop_trace(self, trace: Capture) -> None:
+        fence()
+        path = trace.stop(self.config.profile_dir)
+        self.logger.info(f'Profiler trace in {path}')
+
+    _TB_KEYS = (('loss', 'train/loss'), ('loss_detail', 'train/loss_detail'),
+                ('loss_kd', 'train/loss_kd'))
+
+    def _flush_tb(self, buf) -> None:
+        """Write buffered (step, metrics) pairs to TensorBoard with ONE
+        batched device-to-host readback for the interval (averaged over
+        the ranks in a process group, on every rank, so the collective
+        matches)."""
+        if not buf:
+            return
+        keys = [[k for k, _ in self._TB_KEYS if k in m] for _, m in buf]
+        flat = torch.stack([m[k].detach().float().reshape(())
+                            for (_, m), ks in zip(buf, keys) for k in ks])
+        vals = iter(all_reduce_mean(flat).cpu().tolist())
+        tags = dict(self._TB_KEYS)
+        for (step_id, m), ks in zip(buf, keys):
+            scalars = {tags[k]: next(vals) for k in ks}
+            if 'loss_kd' in m:
+                scalars['train/loss_total'] = scalars['train/loss']
+            self.writer.add_scalars(scalars, step_id)
+        buf.clear()
 
     def validate(self, val_best: bool = False) -> float:
         """mIoU of the EMA weights over the val split. The confusion matrix
@@ -404,29 +586,41 @@ class SegTrainer:
         cfg = self.config
         cm_host = np.zeros((cfg.num_class, cfg.num_class), np.int64)
         cm_dev, dev_pixels = None, 0
-        for imgs, msks in self._batches(self.val_loader):
-            n = msks.numel()
-            if n >= _INT32_MAX:
-                # one batch past int32 would overflow inside the int32
-                # confusion matrix itself
-                raise ValueError(
-                    f'Val batch has {n} pixels, >= int32 max: shrink the '
-                    f'val batch (per-call bound of the on-device confusion '
-                    f'matrix)')
-            if cm_dev is not None and dev_pixels + n >= _INT32_MAX:
-                cm_host += cm_dev.cpu().numpy().astype(np.int64)
-                cm_dev, dev_pixels = None, 0
-            part = self.eval_step(imgs, msks)
-            cm_dev = part if cm_dev is None else cm_dev + part
-            dev_pixels += n
+        col = StepCollector(self._obs_sink, 'val',
+                            imgs_per_step=cfg.val_bs * cfg.gpu_num,
+                            jitted=self.eval_step, watchdog=self._watchdog,
+                            epoch=self.cur_epoch, registry=self.metrics)
+        batches = self._batches(self.val_loader)
+        try:
+            for imgs, msks in col.wrap(batches):
+                n = msks.numel()
+                if n >= _INT32_MAX:
+                    # one batch past int32 would overflow inside the int32
+                    # confusion matrix itself
+                    raise ValueError(
+                        f'Val batch has {n} pixels, >= int32 max: shrink '
+                        f'the val batch (per-call bound of the on-device '
+                        f'confusion matrix)')
+                if cm_dev is not None and dev_pixels + n >= _INT32_MAX:
+                    cm_host += cm_dev.cpu().numpy().astype(np.int64)
+                    cm_dev, dev_pixels = None, 0
+                with span('val/dispatch', record=False):
+                    part = self.eval_step(imgs, msks)
+                cm_dev = part if cm_dev is None else cm_dev + part
+                dev_pixels += n
+                col.end_step()
+        finally:
+            batches.close()
         if cm_dev is None:
             raise RuntimeError('Validation loader yielded no batches.')
-        cm_host += cm_dev.cpu().numpy().astype(np.int64)
+        with span('val/readback'):
+            cm_host += cm_dev.cpu().numpy().astype(np.int64)
         if is_distributed():
             cm_host = all_reduce_sum(torch.from_numpy(cm_host).to(
                 self.device)).cpu().numpy()
         self.last_cm = cm_host
-        score = float(iou_from_cm(cm_host).mean())
+        iou = iou_from_cm(cm_host)
+        score = float(iou.mean())
         if val_best:
             self.logger.info(f'Train {cfg.total_epoch} epochs finished. '
                              f'Best mIoU is: {score:.4f}')
@@ -434,6 +628,17 @@ class SegTrainer:
             self.logger.info(f'Epoch {self.cur_epoch + 1} mIoU: '
                              f'{score:.4f} | best mIoU so far: '
                              f'{max(self.best_score, score):.4f}')
+            if self.writer is not None:
+                scalars = {'val/mIoU': score}
+                scalars.update({f'val/IoU_cls{i:02d}': iou[i]
+                                for i in range(cfg.num_class)})
+                self.writer.add_scalars(scalars, self.cur_epoch + 1)
+        if self._obs_sink is not None:
+            self._obs_sink.emit({
+                'event': 'epoch', 'epoch': self.cur_epoch, 'kind': 'val',
+                'steps': col.n_steps, 'miou': score,
+                'data_wait_s': round(col.total_wait, 3),
+                'step_s': round(col.total_dur, 3)})
         return score
 
     def val_best(self) -> float:

@@ -1,6 +1,5 @@
-"""Logging, seeding and config files (counterpart of
-rtseg_tpu/utils/misc.py). TensorBoard's writer comes with the planes
-(ROADMAP.md Queue 1, "The planes"): the trainer refuses use_tb."""
+"""Logging, seeding, config files and the TensorBoard writer (counterpart
+of rtseg_tpu/utils/misc.py)."""
 
 from __future__ import annotations
 
@@ -61,3 +60,48 @@ def save_config(config) -> None:
 def log_config(config, logger) -> None:
     msg = json.dumps(config.to_dict(), indent=2, default=str)
     logger.info(f'Config:\n{msg}')
+
+
+class TBWriter:
+    """TensorBoard scalar writer over torch.utils.tensorboard; a no-op
+    when config.use_tb is off or on a rank other than the main one.
+
+    Where the JAX class goes silent without TensorBoard, this one logs
+    one warning that names the missing package and then writes nothing:
+    the run goes on without TB files, and the switch is not ignored
+    without a word."""
+
+    def __init__(self, config, main_rank: bool):
+        self._w = None
+        if not (config.use_tb and main_rank):
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            logging.getLogger(config.logger_name).warning(
+                f'use_tb: TensorBoard logging is off for this run: '
+                f'torch.utils.tensorboard needs the tensorboard package '
+                f'({e})')
+            return
+        mkdir(config.tb_log_dir)
+        self._w = SummaryWriter(config.tb_log_dir)
+
+    @property
+    def active(self) -> bool:
+        return self._w is not None
+
+    def add_scalar(self, tag, value, step):
+        if self._w is not None:
+            self._w.add_scalar(tag, float(value), int(step))
+
+    def add_scalars(self, scalars, step):
+        """Write a dict of host scalars at one step. Callers read their
+        device values back in one batch a log interval (see
+        SegTrainer._flush_tb) before handing them here."""
+        if self._w is not None:
+            for tag, value in scalars.items():
+                self._w.add_scalar(tag, float(value), int(step))
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()

@@ -167,6 +167,21 @@ def rendezvous(rank, world, store, how: str, port: int) -> Dict:
 
 # ------------------------------------------------------------- the steps
 
+def obs_sink(rank, world, store, obs_dir: str) -> Dict:
+    """Open this rank's event sink (obs/core.py init_run) in a gloo group
+    and write one event: each rank's file is its own. The ranks leave
+    together (a rank that tore its group down while the other was still
+    connecting would fail that one)."""
+    import torch.distributed as dist
+    from rtseg_tpu_torch.obs import init_run
+    join(store, rank, world)
+    sink = init_run(obs_dir, meta={'rank': rank})
+    sink.emit({'event': 'probe', 'rank': rank})
+    sink.close()
+    dist.barrier()
+    return {'path': sink.path, 'host': sink.static['host']}
+
+
 def _state(cfg, variables, dtype=torch.float32):
     from rtseg_tpu_torch.models import get_model
     from rtseg_tpu_torch.train.optim import get_optimizer

@@ -4,7 +4,8 @@ end, each mask equal to the engine's on the request alone; the server on
 localhost (/predict as a colormapped PNG and ?raw=1, /healthz, /stats,
 /metrics, 413 for an image no bucket fits, 500 saying why for a JPEG body
 cut short and for a body of another format, /debug/profile answering
-501, /debug/flight, the drain); the open-loop bench and its gate; and
+200 with a parsed profile and 409 to an overlapping capture,
+/debug/flight, the drain); the open-loop bench and its gate; and
 `tools/torch_segserve.py bench --check --device cpu` as a subprocess."""
 
 import json
@@ -12,6 +13,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -167,12 +169,58 @@ def test_http_errors_and_refusals(server):
     code, _, data = _post(url + '/predict', b'GIF89a not a png')
     assert code == 500
     assert 'neither a PNG nor a JPEG' in json.loads(data)['error']
+    # the on-demand profiler capture: 200 with the parsed profile; 409
+    # for a POST that overlaps another capture; 400 for a bad ms
+    from rtseg_tpu_torch.obs import profile as prof
+    first = {}
+    th = threading.Thread(target=lambda: first.update(zip(
+        ('code', 'hdr', 'data'), _post(url + '/debug/profile?ms=600',
+                                       b''))))
+    th.start()
+    deadline = time.monotonic() + 30
+    while not prof._CAPTURE_LOCK.locked() and time.monotonic() < deadline:
+        time.sleep(0.01)
     code, _, data = _post(url + '/debug/profile?ms=50', b'')
-    assert code == 501 and '"The planes"' in json.loads(data)['error']
+    th.join(timeout=60)
+    assert code == 409 and 'already in progress' in json.loads(data)['error']
+    ev = json.loads(first['data'])
+    assert first['code'] == 200 and ev['event'] == 'profile'
+    assert ev['source'] == 'debug' and ev['requested_ms'] == 600.0
+    assert {'busy_frac', 'categories', 'modules', 'top_ops', 'window_ms',
+            'device_track'} <= set(ev)
+    assert _post(url + '/debug/profile?ms=nan', b'')[0] == 400
     assert _post(url + '/predict', b'')[0] == 400
     assert _post(url + '/nowhere', b'x')[0] == 404
     code, _, _ = _post(url + '/predict', big, {'X-Deadline-Ms': '-1'})
     assert code == 504
+
+
+def test_http_debug_profile_answers_503_for_an_incomplete_trace(
+        server, monkeypatch):
+    """A capture whose trace lost launches' device work is no profile:
+    503 with the partial event, its lost_launches and an error; the busy
+    gauge keeps its value."""
+    from rtseg_tpu_torch.obs.profile import DeviceProfile
+    from rtseg_tpu_torch.serve import server as server_mod
+    srv, url = server
+    gauge = srv.pipeline.registry.gauge('device_busy_frac')
+    gauge.set(0.5)
+    lost = DeviceProfile(window_us=4e5, busy_us=1e3, n_ops=3,
+                         device_track=True, top_ops=[('k', 1e3)],
+                         lost_launches=41)
+    monkeypatch.setattr(server_mod, 'capture_window', lambda s: lost)
+    code, _, data = _post(url + '/debug/profile?ms=20', b'')
+    ev = json.loads(data)
+    assert code == 503 and ev['event'] == 'profile'
+    assert ev['lost_launches'] == 41 and 'lost the device work of 41' \
+        in ev['error']
+    assert gauge.value == 0.5
+    monkeypatch.setattr(server_mod, 'capture_window', lambda s: DeviceProfile(
+        window_us=4e5, busy_us=1e5, n_ops=3, device_track=True))
+    code, _, data = _post(url + '/debug/profile?ms=20', b'')
+    ev = json.loads(data)
+    assert code == 200 and 'lost_launches' not in ev and 'error' not in ev
+    assert gauge.value == ev['busy_frac'] == 0.25
 
 
 def test_http_health_stats_metrics_and_flight(server):

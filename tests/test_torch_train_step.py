@@ -277,9 +277,7 @@ def test_train_step_refuses_what_it_does_not_implement(tmp_path):
         trainer.train_step(trainer.state, imgs, msks)
 
 
-@pytest.mark.parametrize('flag,value', [('use_tb', True), ('use_obs', True),
-                                        ('profile_dir', 'trace'),
-                                        ('compile_cache', True)])
+@pytest.mark.parametrize('flag,value', [('compile_cache', True)])
 def test_run_refuses_the_planes_not_ported(tmp_path, flag, value):
     trainer = SegTrainer(_config(tmp_path, **{flag: value}), device='cpu')
     with pytest.raises(NotImplementedError, match=flag):
