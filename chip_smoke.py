@@ -76,7 +76,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      modules' share); the eval step at 1024x2048, its
      peak memory (a line of its own for MiT-b2), and K1, K2 timed on each
      model's logits there; the models of ZOO_BESIDE in a second process
-     on the card beside the main one, which runs the others
+     on the card beside the main one, which runs the others (those of
+     ZOO_ALONE, SegNet, once the second has ended)
      (phase_zoo_split: the times of both are taken side by side)
   6b. KD (phase_kd): the reference README's pair, a ResNet-101 DeepLabV3+
      teacher whose run() (1 epoch of 3 steps at 512x1024 bs16 bf16, its
@@ -97,7 +98,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      BiSeNetv2 with its aux heads under Adam with remat: run() (launches
      counted); BiSeNetv2, ENet, MiT-b2 FPN and SegNet one step with and
      without remat from the same Flax init, bit-equal, the same number of
-     masks drawn, both steps' times and peaks; (c) the uint8 tail:
+     masks drawn, both steps' times and peaks (SegNet's, 51.5 GiB, once
+     phase 12 (b)'s runs beside this phase have ended); (c) the uint8 tail:
      device_flip_norm at [16,512,1024,3] with random flags on the card
      bit-equal to the CPU and the host path, BiSeNetv2's train step with
      norm_coeffs on a uint8 batch bit-equal to the float step on the
@@ -256,17 +258,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      started with the script, before phase 1), loaded on the card, batch
      1 and 3 within 1e-5 of the eager forward on the artifact's weights;
      K1 and K2 launch counts unchanged
-  14. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
+  14. warm starts (WarmStart), in a thread beside phase 12 and ended
+     before phase 13 (whose replay times want the card to itself): a
+     fresh cache directory in the run's temporary directory; main_torch
+     with --compile_cache true (BiSeNetv2, bs8, 1 epoch of 2 steps, one
+     validation and val_best's, on 16 train and 8 val 256x512 PNGs the
+     phase writes, cuDNN's deterministic algorithms) in a cold child, which
+     builds K1, K2 (nvcc) and the host library (cc) through the cache,
+     then in a warm child: every compile event a hit, no compiler build,
+     the process's one cache (the trainer's) 3 hits and 0 misses, losses and mIoU bit-equal to the cold child's;
+     in each child K1 and K2, from the libraries the cache gave, on the
+     EMA model's deferred logits of a val batch against their plain
+     versions (K1 within 1e-4, K2 bit-equal); each library's build or
+     load s, run() s and the report's startup compile s; then K2's entry
+     truncated: tools/torch_segwarm.py warm warns, records the fallback
+     and rebuilds it, stats --check exits 1, and after clear 0
+  15. the {"train": ...}, {"zoo": ...}, {"kd": ...}, {"optim": ...},
      {"import": ...}, {"main": ...}, {"obs": ...}, {"serve": ...},
-     {"jpeg": ...},
-     {"ddp": ...} and {"export": ...} lines, and the {"kernels": [...]}
+     {"jpeg": ...}, {"ddp": ...}, {"export": ...} and {"warm": ...}
+     lines, and the {"kernels": [...]}
      line, whose launch counts are those of the eval slice (phase 4), the
      train run (phase 5), the zoo's runs (phase 6), the KD runs (phase
      6b), the optimizer tail's runs and eval step (phase 6c), phase 9's
-     runs, phase 9c's, phase 11's and phase 12's together, checked
-     exactly against the counts they give: K1 122, K2 154 (phases 10 and
-     13 add none);
-  15. the {"ok": true, ...} line.
+     runs, phase 9c's, phase 11's, phase 12's and phase 14's together,
+     checked exactly against the counts they give: K1 126, K2 158
+     (phases 10 and 13 add none);
+  16. the {"ok": true, ...} line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -275,6 +292,7 @@ from __future__ import annotations
 
 import atexit
 import copy
+import hashlib
 import json
 import logging
 import math
@@ -1301,6 +1319,10 @@ ZOO_BESIDE = ('FastSCNN', 'DDRNet-23-slim', 'STDC1', 'BiSeNetv1', 'ICNet',
               'smp MAnet', 'smp PSPNet', 'smp DeepLabV3')
 # the environment of the process beside: the directory of the CPU sides
 # of its card-against-CPU runs and the main process's eval batch's sums
+# the main process's models that run once the child has ended: SegNet's
+# train step peaks at 51.1 GiB and its eval higher, which beside the
+# child's models ran the card out of memory
+ZOO_ALONE = ('SegNet',)
 ZOO_BESIDE_ENV = 'CHIP_SMOKE_ZOO_BESIDE'
 
 
@@ -1747,8 +1769,9 @@ def phase_zoo_split(dev, card, eval_imgs, eval_msks, host):
                               daemon=True)
     feeder.start()
     try:
-        launches, out = phase_zoo(dev, card, eval_imgs, eval_msks, host,
-                                  [m for m in ZOO if m[0] not in ZOO_BESIDE])
+        launches, out = phase_zoo(
+            dev, card, eval_imgs, eval_msks, host,
+            [m for m in ZOO if m[0] not in ZOO_BESIDE + ZOO_ALONE])
         t0 = time.perf_counter()
         try:
             child.wait(timeout=900)
@@ -1760,6 +1783,11 @@ def phase_zoo_split(dev, card, eval_imgs, eval_msks, host):
         res = _obs_child_result('zoo', child, files[0].read(),
                                 files[1].read())
         feeder.join(timeout=60)
+        # the models that need the card to themselves, once the child ended
+        alone, out_alone = phase_zoo(dev, card, eval_imgs, eval_msks, host,
+                                     [m for m in ZOO if m[0] in ZOO_ALONE])
+        launches = {k: v + alone[k] for k, v in launches.items()}
+        out.update(out_alone)
     finally:
         if child.poll() is None:
             child.kill()
@@ -1768,8 +1796,9 @@ def phase_zoo_split(dev, card, eval_imgs, eval_msks, host):
             f.close()
         shutil.rmtree(tmp, ignore_errors=True)
     say(f'zoo: {len(ZOO_BESIDE)} models in a process beside this one, '
-        f'{len(ZOO) - len(ZOO_BESIDE)} here; this one waited {waited:.1f} s '
-        f'for it at the end (times taken side by side: not speed figures)')
+        f'{len(ZOO) - len(ZOO_BESIDE)} here ({", ".join(ZOO_ALONE)} once it '
+        f'ended); this one waited {waited:.1f} s for it (times taken side '
+        f'by side: not speed figures)')
     beside = res['obs']
     launches = {k: v + res['launches'][k] for k, v in launches.items()}
     return launches, {name: (out[name] if name in out else beside[name])
@@ -2036,6 +2065,9 @@ REMAT_MODELS = (('BiSeNetv2', dict(model='bisenetv2', use_aux=True)),
                 ('ENet', dict(model='enet', use_aux=False)),
                 ('smp FPN MiT-b2', _smp('mit_b2', 'fpn')),
                 ('SegNet', dict(model='segnet', use_aux=False)))
+# remat models whose step peaks above half the card (SegNet: 51.5 GiB):
+# phase_optim waits for the work beside it (`before_peak`) first
+REMAT_ALONE = ('SegNet',)
 # the card-against-CPU runs under Adam and AdamW: (name, config switches,
 # samples a step), 3 float32 steps at 64x128 at the start of a long
 # warmup (OPTIM_SMALL), the LR near its floor of 1e-3 / 25. Adam moves an
@@ -2192,7 +2224,7 @@ def _remat_pair(name, kw, dev):
     return out
 
 
-def phase_optim(dev, card, eval_imgs, eval_msks):
+def phase_optim(dev, card, eval_imgs, eval_msks, before_peak=None):
     """The optimizer tail on the card at full width (bs16, 512x1024 train
     crop, 1024x2048 eval, bf16, 19 classes, Flax init, OHEM, OneCycle,
     EMA): (a) AdamW on smp FPN over MiT-b2: run() for 1 epoch of 3 steps
@@ -2299,8 +2331,15 @@ def phase_optim(dev, card, eval_imgs, eval_msks):
         out['flagship_adam_remat'] = {'run_cold_s': wall, 'miou': miou}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out['remat'] = {name: _remat_pair(name, kw, dev)
-                    for name, kw in REMAT_MODELS}
+    out['remat'] = {}
+    for name, kw in REMAT_MODELS:
+        if name in REMAT_ALONE and before_peak is not None:
+            # its step peaks above half the card: phase 12 (b)'s runs
+            # beside this phase end first, and the cache of the models
+            # before goes back to the card
+            before_peak()
+            torch.cuda.empty_cache()
+        out['remat'][name] = _remat_pair(name, kw, dev)
 
     # (c) the uint8 tail
     rng = np.random.default_rng(5)
@@ -2725,13 +2764,15 @@ CONVERGE = dict(dataset='synthetic', model='bisenetv2', num_class=8,
                 use_tb=False, use_obs=False)
 
 
-def street_tree(root: str, seed: int = 0, cell: int = 64) -> None:
+def street_tree(root: str, seed: int = 0, cell: int = 64,
+                n_train: int = MAIN_TRAIN, n_val: int = MAIN_VAL) -> None:
     """A Cityscapes tree of 1024x2048 PNGs in two cities: street-like
     trainId fields (sky, buildings, road bands and objects in cells)
     rendered through the synthetic dataset's palette with noise, masks as
     8-bit labelIds through the inverse of ID_TO_TRAIN_ID (255 -> 0,
     unlabeled); written by the port's encoder cycling the five filters.
-    The field has 16 x 32 cells of `cell` pixels."""
+    The field has 16 x 32 cells of `cell` pixels; `n_train` and `n_val`
+    images."""
     import os
     from concurrent.futures import ThreadPoolExecutor
     from rtseg_tpu_torch.data import png
@@ -2766,8 +2807,8 @@ def street_tree(root: str, seed: int = 0, cell: int = 64) -> None:
                 f.write(png.encode(arr, (0, 1, 2, 3, 4), idat_chunks=3,
                                    level=1))
 
-    jobs = [('train', i) for i in range(MAIN_TRAIN)] + [
-        ('val', i) for i in range(MAIN_VAL)]
+    jobs = [('train', i) for i in range(n_train)] + [
+        ('val', i) for i in range(n_val)]
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda j: sample(*j), jobs))
 
@@ -4790,6 +4831,10 @@ class DdpPairs:
             self.error = e
         self.seconds = time.perf_counter() - self.t0
 
+    def wait(self):
+        """Until both pairs have ended (result() reports how)."""
+        self.thread.join(2 * DDP_TIMEOUT_S)
+
     def result(self):
         """({launcher: [its walls]}, {launcher: its save_dir}, the seconds
         from the start to the second pair's end); a pair's failure fails
@@ -5452,6 +5497,274 @@ def phase_export(dev, exports: HostJobs):
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+# a Cityscapes-layout tree of 256x512 PNGs (16 x 32 cells of 16 pixels):
+# BiSeNetv2, bs8, 1 epoch of 2 steps, one validation and val_best's, each
+# one val batch (K1 and K2 once a val batch: its logits are 1/8). Not
+# FastSCNN: its pyramid pooling's backward (adaptive_avg_pool2d on CUDA)
+# adds with atomics, so two runs of it are not bit-equal on the card,
+# with cuDNN's deterministic algorithms too (equal losses and mIoU 4.9e-6
+# apart in one pair of runs, losses 2.2e-4 apart in another)
+WARM_TRAIN, WARM_VAL, WARM_CELL = 16, 8, 16
+WARM_VALS = 2
+WARM_ARGV = ['--dataset', 'cityscapes', '--num_class', '19', '--model',
+             'bisenetv2', '--crop_h', '256', '--crop_w', '512', '--train_bs',
+             '8', '--val_bs', '8', '--total_epoch', '1', '--use_tb', 'false',
+             '--use_obs', 'true', '--log_interval', '0', '--compile_cache',
+             'true']
+WARM_LIBS = {'eval_step:fused_head', 'eval_step:confusion_matrix',
+             'rtseg_host'}
+
+# each child on cuDNN's deterministic algorithms, as phase 12 (b)'s: with
+# its default ones two runs of one program may differ, whatever the cache
+# does
+WARM_CHILD = """import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+out = cs.phase_warm_child({data!r}, {save!r}, {cache!r})
+with open({result!r}, 'w') as f:
+    json.dump(out, f)
+"""
+
+
+def _record_compilers() -> list:
+    """The argv of every nvcc or cc process this process starts from now
+    on (subprocess.Popen wrapped)."""
+    started = []
+    init = subprocess.Popen.__init__
+    names = {'nvcc', 'cc', os.path.basename(os.environ.get('CC', 'cc'))}
+
+    def recording(self, args, *a, **kw):
+        argv = [args] if isinstance(args, (str, bytes)) else list(args)
+        if os.path.basename(str(argv[0])) in names:
+            started.append([str(x) for x in argv])
+        init(self, args, *a, **kw)
+    subprocess.Popen.__init__ = recording
+    return started
+
+
+def phase_warm_child(data, save, cache):
+    """Phase 14, one child: main_torch.main with --compile_cache under
+    `cache`; its compile events, the compilers it started, run()'s and the
+    report's seconds, its losses and score; then K1 and K2, from the
+    libraries the cache gave, on the EMA model's deferred logits of a val
+    batch against their plain versions (launches not counted)."""
+    import main_torch
+    from rtseg_tpu_torch.obs import report
+    from rtseg_tpu_torch.ops import cuda_build
+    from rtseg_tpu_torch.ops.augment import norm_table, normalize
+    from rtseg_tpu_torch.ops.fused_head import _argmax_ref, resize_argmax
+    from rtseg_tpu_torch.ops.pallas_metrics import (confusion_matrix_pallas,
+                                                    confusion_matrix_plain)
+    from rtseg_tpu_torch.warm.compile_cache import active_cache
+    started = _record_compilers()
+    t0 = time.perf_counter()
+    trainer, score = main_torch.main(WARM_ARGV + [
+        '--data_root', data, '--save_dir', save, '--compile_cache_dir',
+        cache])
+    wall = time.perf_counter() - t0
+    launches = {'resize_argmax': resize_argmax.launches,
+                'confusion_matrix': confusion_matrix_pallas.launches}
+    events = report.load_events(trainer.config.obs_dir)
+    summary = report.summarize(events)
+    dev = trainer.device
+    imgs, msks = next(iter(trainer.val_loader))[:2]
+    imgs, msks = imgs.to(dev), msks.to(dev)
+    if imgs.dtype == torch.uint8:
+        imgs = normalize(imgs, norm_table(*trainer.train_loader.norm_coeffs,
+                                          dev))
+    with torch.inference_mode():
+        low = trainer.ema_model(imgs.to(torch.bfloat16),
+                                defer_upsample=True).contiguous()
+    size = tuple(imgs.shape[1:3])
+    preds = resize_argmax(low, size)
+    k1_rate = _rate(preds, _argmax_ref(low.float(), size))
+    cm = confusion_matrix_pallas(preds, msks.to(torch.int32), C, IGNORE)
+    k2_equal = torch.equal(cm, confusion_matrix_plain(
+        preds, msks.to(torch.int32), C, IGNORE))
+    torch.cuda.synchronize()
+    return {
+        'launches': launches,
+        'compiles': [{k: e.get(k) for k in ('name', 'dur_s', 'cache_hit',
+                                             'bytes', 'key')}
+                     for e in events if e.get('event') == 'compile'],
+        'builds': [a for a in started if '--version' not in a],
+        'version_queries': sum('--version' in a for a in started),
+        'exe_cache': trainer._exe_cache.stats(),
+        'one_cache': trainer._exe_cache is active_cache(),
+        'loaded': sorted(cuda_build._libs),
+        'run_s': next(e['wall_s'] for e in events
+                      if e.get('event') == 'run_end'),
+        'startup_compile_s': summary['startup_compile_s'],
+        'main_s': wall, 'epoch_losses': list(trainer.epoch_losses),
+        'score': score, 'k1_logits': list(low.shape), 'k1_rate': k1_rate,
+        'k2_equal': k2_equal, 'k2_total': int(cm.sum()),
+    }
+
+
+class WarmStart:
+    """Phase 14, in a thread beside phase 12: two child processes
+    sharing one fresh cache directory under the run's temporary
+    directory (never rtseg_tpu_torch/_build/), cold then warm, then the
+    fallback from a truncated entry through tools/torch_segwarm.py.
+    `finish` waits for it and returns (K1/K2 launches, results); `stop`
+    ends what still runs."""
+
+    def __init__(self, card):
+        self.root = str(Path(__file__).resolve().parent)
+        self.card = card
+        self.tmp = tempfile.mkdtemp(prefix='chip_smoke_warm_')
+        self.proc = None
+        self.result = self.error = None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            self.result = self._phase()
+        except BaseException as e:          # re-raised by finish()
+            self.error = e
+
+    def _child(self, tag, data, cache):
+        save = os.path.join(self.tmp, tag)
+        result = os.path.join(self.tmp, f'{tag}.json')
+        logs = [open(os.path.join(self.tmp, f'{tag}.{n}'), 'w+')
+                for n in ('out', 'err')]
+        code = WARM_CHILD.format(root=self.root, data=data, save=save,
+                                 cache=cache, result=result)
+        try:
+            self.proc = subprocess.Popen([sys.executable, '-c', code],
+                                         cwd=self.root, stdout=logs[0],
+                                         stderr=logs[1], text=True)
+            rc = self.proc.wait(timeout=600)
+            logs[1].seek(0)
+            check(rc == 0, f'warm-start {tag} child exited {rc}: '
+                  f'{logs[1].read()[-3000:]}')
+        finally:
+            for f in logs:
+                f.close()
+        with open(result) as f:
+            return json.load(f)
+
+    def _tool(self, *args):
+        return subprocess.run(
+            [sys.executable, os.path.join(self.root, 'tools',
+                                          'torch_segwarm.py'), *args],
+            capture_output=True, text=True, timeout=600, cwd=self.root)
+
+    def _phase(self):
+        from rtseg_tpu_torch.warm import scan_cache
+        data = os.path.join(self.tmp, 'cityscapes')
+        cache = os.path.join(self.tmp, 'cache')
+        street_tree(data, seed=3, cell=WARM_CELL, n_train=WARM_TRAIN,
+                    n_val=WARM_VAL)
+        out = {}
+        for tag in ('cold', 'warm'):
+            r = out[tag] = self._child(tag, data, cache)
+            by = {e['name']: e for e in r['compiles']}
+            check(set(by) == WARM_LIBS and len(r['compiles']) == 3,
+                  f'warm-start {tag}: compile events {r["compiles"]}')
+            hits = [e['cache_hit'] for e in r['compiles']]
+            want_launches = {'resize_argmax': WARM_VALS,
+                             'confusion_matrix': WARM_VALS}
+            check(r['launches'] == want_launches,
+                  f'warm-start {tag}: launches {r["launches"]} != '
+                  f'{want_launches}')
+            check(set(r['loaded']) == {'confusion_matrix', 'fused_head'},
+                  f'warm-start {tag}: kernel libraries {r["loaded"]}')
+            check(r['k1_rate'] <= 1e-4 and r['k2_equal'],
+                  f'warm-start {tag}: K1 mismatch {r["k1_rate"]}, K2 '
+                  f'bit-equal {r["k2_equal"]}')
+            builds = sorted(os.path.basename(a[0]) for a in r['builds'])
+            # one cache a process: the trainer's is the process's
+            c = r['exe_cache']
+            if tag == 'cold':
+                check(not any(hits) and r['one_cache'] and c['misses'] == 3
+                      and c['hits'] == 0 and len(builds) == 3,
+                      f'warm-start cold: hits {hits}, cache {c} (the '
+                      f'process\'s: {r["one_cache"]}), builds {builds}')
+            else:
+                check(all(hits) and r['one_cache'] and c['misses'] == 0
+                      and c['hits'] == 3 and c['fallbacks'] == 0
+                      and not builds,
+                      f'warm-start warm: hits {hits}, cache {c} (the '
+                      f'process\'s: {r["one_cache"]}), builds {builds}')
+            say(f'warm start ({tag}, main_torch.py --compile_cache true, '
+                f'BiSeNetv2 256x512 bs8, 2 steps and 2 validations): '
+                + ', '.join(f'{n} {by[n]["dur_s"]:.3f} s'
+                            for n in sorted(WARM_LIBS))
+                + f' ({"loaded from the cache" if all(hits) else "built and stored"}'
+                f'; compiler builds {builds or "none"}, version queries '
+                f'{r["version_queries"]}); run() {r["run_s"]:.2f} s, '
+                f'startup compile {r["startup_compile_s"]:.3f} s, '
+                f'main_torch.main {r["main_s"]:.2f} s; K1 on '
+                f'{r["k1_logits"]} mismatch {r["k1_rate"]:.3e} (tolerance '
+                f'1e-4), K2 bit-equal {r["k2_equal"]}')
+        check(out['warm']['epoch_losses'] == out['cold']['epoch_losses']
+              and out['warm']['score'] == out['cold']['score'],
+              f'warm-start: losses {out["warm"]["epoch_losses"]} / '
+              f'{out["cold"]["epoch_losses"]}, mIoU {out["warm"]["score"]} /'
+              f' {out["cold"]["score"]}')
+        say(f'warm start: losses {out["warm"]["epoch_losses"]} and mIoU '
+            f'{out["warm"]["score"]:.6f} bit-equal to the cold run\'s')
+        # the fallback: one stored entry truncated, a third acquisition
+        entries = scan_cache(cache)['entries']
+        check(len(entries) == 3, f'warm-start: {len(entries)} entries')
+        k2 = next(e for e in entries if 'confusion_matrix' in e['name'])
+        path = os.path.join(cache, 'exe', k2['key'] + '.exe')
+        with open(path, 'r+b') as f:
+            f.truncate(k2['bytes'] // 2)
+        t0 = time.perf_counter()
+        warm = self._tool('warm', '--cache-dir', cache)
+        fallback_s = time.perf_counter() - t0
+        s = scan_cache(cache)
+        rebuilt = next(e for e in s['entries'] if e['key'] == k2['key'])
+        with open(path, 'rb') as f:
+            whole = hashlib.sha256(f.read()).hexdigest() == rebuilt['sha256']
+        check(warm.returncode == 0 and 'falling back to a fresh build'
+              in warm.stderr and s['n_fallbacks'] == 1 and whole,
+              f'warm-start fallback: rc {warm.returncode}, '
+              f'{s["n_fallbacks"]} recorded, {warm.stderr[-2000:]}')
+        checked = self._tool('stats', '--cache-dir', cache, '--check')
+        cleared = self._tool('clear', '--cache-dir', cache)
+        after = self._tool('stats', '--cache-dir', cache, '--check')
+        check(checked.returncode == 1 and cleared.returncode == 0
+              and after.returncode == 0,
+              f'torch_segwarm stats --check {checked.returncode} (1), clear '
+              f'{cleared.returncode}, then --check {after.returncode} (0)')
+        say(f'warm start: K2\'s entry cut to {k2["bytes"] // 2} of '
+            f'{k2["bytes"]} bytes; tools/torch_segwarm.py warm warned, '
+            f'recorded {s["n_fallbacks"]} fallback and rebuilt it '
+            f'({fallback_s:.2f} s); stats --check exited 1, after clear 0')
+        out['fallback_s'] = fallback_s
+        return out
+
+    def finish(self):
+        self.thread.join(timeout=900)
+        check(not self.thread.is_alive(), 'phase 14 did not end')
+        if self.error is not None:
+            raise self.error
+        out = self.result
+        out['phase_s'] = time.perf_counter() - self.t0
+        launches = {k: out['cold']['launches'][k]
+                    + out['warm']['launches'][k]
+                    for k in ('resize_argmax', 'confusion_matrix')}
+        self.stop()
+        return launches, out
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def _descendants() -> list:
     """(pid, command) of every live process this one started, directly or
     not, read from /proc."""
@@ -5512,7 +5825,8 @@ def main() -> int:
     atexit.register(pairs.stop)
     kd_launches, kd = phase_kd(dev, card, imgs, msks)
     elapsed('6b (KD)')
-    optim_launches, optim = phase_optim(dev, card, imgs, msks)
+    optim_launches, optim = phase_optim(dev, card, imgs, msks,
+                                        before_peak=pairs.wait)
     elapsed('6c (optimizer tail)')
     imports = phase_import(dev)
     elapsed('7 (import)')
@@ -5532,13 +5846,19 @@ def main() -> int:
     elapsed('9c (d) (/debug/profile, a process of its own)')
     serve = phase_serve(dev)
     elapsed('10 (serve)')
+    # phase 14's two processes, beside phase 12
+    warm_run = WarmStart(card)
+    atexit.register(warm_run.stop)
     ddp_launches, ddp = phase_ddp(dev, card, train['step_ms'], pairs)
     elapsed('12 (data parallel)')
+    # ended before phase 13, whose replay times want the card to itself
+    warm_launches, warm = warm_run.finish()
+    elapsed('14 (warm starts, beside 12)')
     export = phase_export(dev, host)
     elapsed('13 (export and int8)')
     launches = {k: v + train_launches[k] + zoo_launches[k] + kd_launches[k]
                 + optim_launches[k] + main_launches[k] + obs_launches[k]
-                + jpeg_launches[k] + ddp_launches[k]
+                + jpeg_launches[k] + ddp_launches[k] + warm_launches[k]
                 for k, v in launches.items()}
     # one a val batch: 3 in the eval slice, 3 in the train run, 2 for each
     # zoo model (K1 only for those with low-resolution logits), 2 each for
@@ -5557,8 +5877,9 @@ def main() -> int:
     # val batch each (FastSCNN's logits are 1/8: K1 too)
     obs_val = -(-max(16, STALL_RUN['synthetic_len'] // 4)
                 // STALL_RUN['val_bs'])
+    # phase 14: each of its two processes' validations, a val batch each
     want = {k: v + 5 + 3 + converge + 5 + 2 * DDP_WORLD + 2 + 2 * 5
-            + 2 * obs_val for k, v in want.items()}
+            + 2 * obs_val + 2 * WARM_VALS for k, v in want.items()}
     check(launches == want, f'launch counts {launches} != {want}')
     kernels = phase_times(dev, trainer, imgs, msks, preds, launches, wall,
                           k1_err, k2_err, sass, k2_table)
@@ -5576,6 +5897,7 @@ def main() -> int:
     say(json.dumps({'jpeg': jpeg}))
     say(json.dumps({'ddp': ddp}))
     say(json.dumps({'export': export}))
+    say(json.dumps({'warm': warm}))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

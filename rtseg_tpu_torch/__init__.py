@@ -8,5 +8,6 @@ training and evaluation of the JAX registry's 36 models and the smp hub
 nn, models, losses, utils, train; main_torch.py at the repository's
 root), data parallel over torch.distributed (parallel/: one process a
 card), with the two TPU kernels of that path written in CUDA C++
-(ops/csrc/).
+(ops/csrc/); serving, export, int8, telemetry, and warm starts (warm/:
+the compiled libraries kept in a cache).
 """

@@ -20,7 +20,9 @@ of that process would copy CUDA's state and whatever locks those threads
 hold. The fork server is a fresh interpreter started without CUDA or
 threads; it imports this module once (its preload) and forks each worker
 from itself, so a worker starts in milliseconds and never touches CUDA.
-What a worker receives (the sample source, the ring's name) is pickled.
+What a worker receives (the sample source, the ring's name, the
+parent's compile cache settings) is pickled; a worker of a parent with
+the compile cache on loads the host library through the same cache.
 
 The fork server and multiprocessing's resource tracker outlive every
 pool, and on their own they exit only after the parent has gone: for a
@@ -40,6 +42,7 @@ from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
+from ...warm.compile_cache import settings as cache_settings
 from .source import SampleSource, assemble_batch, sample_rngs
 
 
@@ -132,7 +135,13 @@ def _read_slot(buf, layout, slot: int):
 
 
 def _worker_main(shm, layout, source: SampleSource, seed: int,
-                 process_index: int, ignore_index: int, task_q, result_q):
+                 process_index: int, ignore_index: int, task_q, result_q,
+                 compile_cache=None):
+    if compile_cache is not None:
+        # the parent's compile cache (warm/compile_cache.py settings()):
+        # the host library loads from it here too
+        from ...warm import enable_compile_cache
+        enable_compile_cache(**compile_cache)
     try:
         while True:
             task = task_q.get()
@@ -196,7 +205,7 @@ class AugmentPool:
             ctx.Process(target=_worker_main,
                         args=(self._shm, self.layout, source, seed,
                               process_index, ignore_index, self._task_q,
-                              self._result_q),
+                              self._result_q, cache_settings()),
                         daemon=True, name=f'{_WORKER_PREFIX}{w}')
             for w in range(workers)]
         self._closed = False

@@ -16,7 +16,12 @@ run them in parallel.
 Build: one `cc -O3 -ffp-contract=off -shared -fPIC` of both sources at
 first use into `rtseg_tpu_torch/_build/librtseg_host.so` (rebuilt when a
 source or this file is newer), compiled to a temporary name and renamed
-into place. If it fails, `available()` is False, `build_error()` says
+into place. With the process's compile cache on
+(warm/compile_cache.py), the library is acquired through that ExeCache
+instead: keyed by both sources' and this file's text, the command, its
+flags and cc's version; a corrupt entry is a recorded fallback to a
+fresh build. Either way one `compile` event when it is acquired. If the
+build fails, `available()` is False, `build_error()` says
 why, and the callers of host.c's routines take the numpy path, as in the
 JAX package; where the native path is required (chip_smoke.py on the
 card) the caller checks `available()`. `counts()` gives the calls made in
@@ -29,6 +34,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -44,9 +50,38 @@ _lock = threading.Lock()
 _counts: Dict[str, int] = {}
 
 
+def _command() -> list:
+    # -ffp-contract=off: normalize's px*scale+bias must round twice like
+    # the numpy path (and the card's 256-entry table built from it); an
+    # fmadd would move it by an ulp
+    return [os.environ.get('CC', 'cc'), '-O3', '-ffp-contract=off',
+            '-shared', '-fPIC']
+
+
+def _compile(out) -> None:
+    """One cc build of both sources into `out`; raises RuntimeError with
+    cc's output when it fails."""
+    cmd = [*_command(), '-o', str(out), *map(str, _SRCS)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{" ".join(cmd)} exited {proc.returncode}: '
+                           f'{proc.stderr.strip()}')
+
+
+def library_build():
+    """The ExeCache description of the host library."""
+    from ..warm.exe_cache import LibraryBuild
+    return LibraryBuild(
+        name='rtseg_host',
+        sources=tuple((p.name, p.read_text()) for p in _SRCS),
+        builder=Path(__file__).read_text(), command=tuple(_command()),
+        compile=_compile, device=False)
+
+
 def _build() -> Optional[Path]:
-    """Compile (or reuse) the library; never raises: a failure is kept
-    for build_error() and the callers take the numpy path."""
+    """Compile (or reuse) the library in `_build/`; never raises: a
+    failure is kept for build_error() and the callers take the numpy
+    path."""
     global _error
     try:
         newest = max(p.stat().st_mtime
@@ -55,37 +90,54 @@ def _build() -> Optional[Path]:
             return _SO
         _SO.parent.mkdir(parents=True, exist_ok=True)
         tmp = _SO.with_suffix(f'.{os.getpid()}.tmp.so')
-        # -ffp-contract=off: normalize's px*scale+bias must round twice
-        # like the numpy path (and the card's 256-entry table built from
-        # it); an fmadd would move it by an ulp
-        cmd = [os.environ.get('CC', 'cc'), '-O3', '-ffp-contract=off',
-               '-shared', '-fPIC', '-o', str(tmp), *map(str, _SRCS)]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=120)
-        if proc.returncode != 0:
-            _error = f'{" ".join(cmd)} exited {proc.returncode}: ' \
-                     f'{proc.stderr.strip()}'
+        t0 = time.perf_counter()
+        try:
+            _compile(tmp)
+        except RuntimeError as e:
+            _error = str(e)
             tmp.unlink(missing_ok=True)
             return None
         os.replace(tmp, _SO)
+        from ..warm.exe_cache import emit_compile_event
+        emit_compile_event('rtseg_host', time.perf_counter() - t0, False,
+                           nbytes=_SO.stat().st_size)
     except (OSError, subprocess.SubprocessError) as e:
         _error = f'{type(e).__name__}: {e}'
         return None
     return _SO
 
 
+def _acquire():
+    """The library (undeclared) through the process's compile cache, or
+    from `_build/`; None with `_error` set when it cannot be had."""
+    global _error
+    from ..warm.compile_cache import active_cache
+    cache = active_cache()
+    if cache is None:
+        so = _build()
+        if so is None:
+            return None
+        try:
+            return ctypes.CDLL(str(so))
+        except OSError as e:
+            _error = f'dlopen {so}: {e}'
+            return None
+    try:
+        lib, _ = cache.load_or_compile(library_build())
+        return lib
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        _error = f'{type(e).__name__}: {e}'
+        return None
+
+
 def _load():
-    global _lib, _tried, _error
+    global _lib, _tried
     if _tried:
         return _lib
     with _lock:                 # the loader's threads reach here together
         if not _tried:
-            so = _build()
-            if so is not None:
-                try:
-                    _lib = _declare(ctypes.CDLL(str(so)))
-                except OSError as e:
-                    _error = f'dlopen {so}: {e}'
+            lib = _acquire()
+            _lib = None if lib is None else _declare(lib)
             _tried = True
     return _lib
 

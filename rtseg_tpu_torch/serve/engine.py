@@ -20,8 +20,21 @@ An engine comes from a config (``from_config``: the model, its weights
 from a checkpoint of the port or Flax's initializers) or from a
 `torch.export` artifact (``from_artifact``, export.py: the program alone,
 no model code; its input spec fixes the one bucket). Either function is
-captured the same way. Only the executable cache (``exe_cache``, ``pins``)
-is not ported.
+captured the same way.
+
+The executable cache (``exe_cache``, ``pins``; warm/): what the port
+compiles are its kernel libraries (warm/exe_cache.py), and the engine's
+graphs launch none of them (serving never defers the upsample to K1), so
+an engine acquires no library through its cache, ``stats()['cache_hits']``
+counts none, and the graphs are captured at every start: a captured CUDA
+graph cannot be stored and loaded in another process. The pins are
+checked as the JAX engine's (warm/prime.py make_pins). The libraries of
+the serving path (the host library that decodes request bodies) go
+through the process's compile cache, which the serve CLI and
+``from_config`` with ``config.compile_cache`` turn on. The
+JAX engine compiles its buckets on ``compile_workers`` threads; a capture
+needs the engine's one stream and graph pool, so the port captures them
+one after another and refuses ``compile_workers`` above 0.
 
 A graph writes the same static output on every replay, so a second
 replay of a bucket overwrites the first one's mask while that batch may
@@ -197,10 +210,16 @@ class ServeEngine:
 
     def __init__(self, fn: Callable, buckets: Sequence[Bucket], batch: int,
                  device=None, name: str = 'serve_engine',
-                 exe_cache=None, pins=None):
-        if exe_cache is not None or pins is not None:
-            raise not_ported('the executable cache (exe_cache, pins)',
-                             'The planes')
+                 exe_cache=None, pins=None, compile_workers: int = 0):
+        # exe_cache and pins are the JAX engine's: the pins are checked,
+        # and nothing is acquired through the cache (module docstring)
+        if compile_workers:
+            raise not_ported(f'compile_workers={compile_workers} (parallel '
+                             f'bucket builds; the port captures its graphs '
+                             f'one after another)', 'The planes')
+        if pins is not None:
+            from ..warm import make_pins
+            make_pins(**pins)
         if not buckets:
             raise ValueError('ServeEngine needs at least one bucket')
         if batch < 1:
@@ -318,6 +337,10 @@ class ServeEngine:
         return self.dispatch(bucket, images).result()
 
     def stats(self) -> dict:
+        """The JAX engine's keys: ``executables`` counts the table's
+        entries (a CUDA graph each on the card), ``cache_hits`` the
+        libraries the engine acquired from its cache (none: module
+        docstring); ``cuda_graphs`` is the port's own."""
         return {
             'buckets': [f'{h}x{w}' for h, w in self.buckets],
             'batch': self.batch,
@@ -340,10 +363,11 @@ class ServeEngine:
         utils/convert.py), else a checkpoint of the port at ``ckpt_path``
         over Flax's initializers, else Flax's initializers alone drawn
         from seed 0 (load generation only; not the JAX engine's
-        PRNGKey(0) values)."""
-        if getattr(config, 'compile_cache', False):
-            raise not_ported('the compile cache (config.compile_cache)',
-                             'The planes')
+        PRNGKey(0) values). With ``config.compile_cache`` the process's
+        compile cache is turned on under ``config.compile_cache_dir``
+        (the libraries this process builds from now on go through it)
+        and the engine gets it and the JAX engine's pins;
+        ``config.compile_workers`` as the constructor's."""
         from ..export import build_inference_fn
         from ..models.registry import get_model
         from ..train.checkpoint import restore_weights
@@ -358,7 +382,19 @@ class ServeEngine:
         else:
             load_jax_variables(model, variables)
         fn = build_inference_fn(model, config.compute_dtype, argmax=True)
-        return cls(fn, buckets, batch, device=device, name=name)
+        exe_cache = pins = None
+        if getattr(config, 'compile_cache', False):
+            from ..warm import enable_compile_cache, make_pins
+            from ..warm.compile_cache import active_cache
+            enable_compile_cache(config)
+            exe_cache = active_cache()
+            pins = make_pins(bn_axis=None,
+                             s2d_stem=bool(getattr(config, 's2d_stem',
+                                                   False)),
+                             defer_upsample=False)
+        return cls(fn, buckets, batch, device=device, name=name,
+                   exe_cache=exe_cache, pins=pins,
+                   compile_workers=getattr(config, 'compile_workers', 0))
 
     @classmethod
     def from_artifact(cls, path: str, batch: Optional[int] = None,
@@ -368,10 +404,8 @@ class ServeEngine:
         loaded onto ``device`` (the card unless the CPU is named) and
         captured as one CUDA graph there, eager on the CPU. The artifact's
         input spec fixes the one bucket; a symbolic batch dimension takes
-        ``batch`` from the caller, a static one must match it."""
-        if exe_cache is not None:
-            raise not_ported('the executable cache (exe_cache)',
-                             'The planes')
+        ``batch`` from the caller, a static one must match it.
+        ``exe_cache`` is taken as the constructor's (module docstring)."""
         from ..export import artifact_input_shape, exported_fn, load_exported
         device = resolve_device(device)
         exported = load_exported(path, device)
@@ -386,4 +420,4 @@ class ServeEngine:
             raise ValueError(
                 f'artifact {path} has a symbolic batch dim; pass batch=')
         return cls(exported_fn(exported), [(h, w)], int(batch),
-                   device=device, name=name)
+                   device=device, name=name, exe_cache=exe_cache)

@@ -73,6 +73,10 @@ first call of a signature is where eager PyTorch pays its one-time costs
 (cuDNN's algorithm search under cudnn.benchmark, lazy module loading, the
 first build or load of the kernels), so the step collector flags that step
 `compile` as the JAX collector flags a step that grew the jit cache.
+Each step also carries the JAX step wrappers' pins (`bn_axis`,
+`s2d_stem`, `defer_upsample`) and `kernels`, the CUDA kernel libraries it
+launches, which warm/prime.py's warm_step acquires through the compile
+cache.
 
 bf16 runs the way the JAX package runs it: bf16 activations, float32
 weights cast to bf16 per conv call, BatchNorm in float32 on float32
@@ -224,6 +228,28 @@ def _signatures(step: Callable) -> Callable:
     return note
 
 
+def _pin(step: Callable, config, bn_axis=None, defer_upsample: bool = False,
+         kernels=()) -> None:
+    """The step's pins, as the JAX step wrappers carry them (bn_axis,
+    s2d_stem, defer_upsample: the cache key's PIN_KEYS,
+    warm/prime.py), and the CUDA kernel libraries it launches
+    (`kernels`, acquired by warm/prime.py warm_step)."""
+    step.bn_axis = bn_axis
+    step.s2d_stem = bool(getattr(config, 's2d_stem', False))
+    step.defer_upsample = defer_upsample
+    step.kernels = tuple(kernels)
+
+
+def _kernels(device: torch.device, fused: bool, pallas_cm: bool) -> tuple:
+    """The kernel libraries an eval or predict step launches on `device`
+    (none on the CPU, where the wrappers take their plain versions)."""
+    if device.type != 'cuda':
+        return ()
+    return tuple(name for name, on in (('fused_head', fused),
+                                       ('confusion_matrix', pallas_cm))
+                 if on)
+
+
 def _running_stats(norms) -> list:
     return ([m.bn.running_mean for m in norms]
             + [m.bn.running_var for m in norms])
@@ -318,6 +344,8 @@ def build_train_step(config, norm_coeffs=None,
         return state, {**metrics, 'loss': loss.detach()}
 
     note = _signatures(train_step)
+    # the port's one mesh axis, as the JAX step's sync_bn axes
+    _pin(train_step, config, bn_axis=('data',) if config.sync_bn else None)
     return train_step
 
 
@@ -347,9 +375,8 @@ def build_eval_step(config, model, device, norm_coeffs=None) -> Callable:
     prepare = _normalizer(norm_coeffs, device)
     dtype = compute_dtype(config)
     fused = _resolve(config.fused_head, device)
-    cm_fn = (confusion_matrix_pallas
-             if _resolve(config.use_pallas_metrics, device)
-             else confusion_matrix)
+    pallas_cm = _resolve(config.use_pallas_metrics, device)
+    cm_fn = confusion_matrix_pallas if pallas_cm else confusion_matrix
     num_class, ignore = config.num_class, config.ignore_index
 
     @torch.inference_mode()
@@ -360,6 +387,8 @@ def build_eval_step(config, model, device, norm_coeffs=None) -> Callable:
 
     eval_step.fused = fused
     note = _signatures(eval_step)
+    _pin(eval_step, config, defer_upsample=fused,
+         kernels=_kernels(device, fused, pallas_cm))
     return eval_step
 
 
@@ -378,4 +407,6 @@ def build_predict_step(config, model, device, norm_coeffs=None) -> Callable:
 
     predict_step.fused = fused
     note = _signatures(predict_step)
+    _pin(predict_step, config, defer_upsample=fused,
+         kernels=_kernels(device, fused, False))
     return predict_step

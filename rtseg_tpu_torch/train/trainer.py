@@ -78,9 +78,18 @@ ranks) and each validation's mIoU and class IoUs to TensorBoard
 run() entry and close at its end, so a trainer that is built and never
 run holds none of them.
 
+With config.compile_cache (warm/), as in the JAX trainer: __init__
+turns the process's compile cache on under config.compile_cache_dir
+before anything builds, so the host library is loaded from it on a warm
+start, and wraps the train and eval steps with warm_step over that
+cache (`self._exe_cache`, one a process), so the eval step's first call
+acquires K1 and K2 through it (the train step launches no kernel and
+acquires nothing).
+Losses and scores are those of a run without the cache.
+
 Switches of the JAX trainer that the port does not implement raise
 NotImplementedError naming the ROADMAP.md Queue 1 item that brings them:
-spatial_partition > 1 when the trainer is built, compile_cache in run().
+spatial_partition > 1 when the trainer is built.
 recompile_guard (the JAX package's guard against a retrace of its
 compiled steps; the port's steps are not traced) is accepted and changes
 nothing.
@@ -116,16 +125,16 @@ from .checkpoint import (AsyncCkptWriter, load_meta, restore_train_ckpt,
                          write_train_ckpt)
 from .optim import get_optimizer
 from .state import TrainState, make_ema_model
+from ..warm import enable_compile_cache, warm_step
+from ..warm.compile_cache import active_cache
 from .step import build_eval_step, build_train_step
 
 _INT32_MAX = np.iinfo(np.int32).max
 
 # config switches of the JAX trainer that the port does not implement yet
-# (config.refuse_unported): those that change what the trainer builds,
-# refused by __init__, and the planes, refused by run()
+# (config.refuse_unported), refused by __init__
 _NOT_BUILT = (('spatial_partition', lambda v: v > 1, 'the spatial mesh',
                'Spatial mesh'),)
-_NOT_PORTED = (('compile_cache', bool, 'the compile cache', 'The planes'),)
 
 # module-range depth of the profile_dir trace (obs/profile.py): deep
 # enough for MiT's attention (encoder/mit/block1_0/attn); a parse at any
@@ -173,6 +182,10 @@ class SegTrainer:
         # the LR scaling and the schedule follow the world size
         config.resolve(num_devices=process_count())
         self.config = config
+        if config.compile_cache:
+            # every library build of the process through the cache, before
+            # anything builds (the loaders' host library included)
+            enable_compile_cache(config)
         self.main_rank = main_rank()
         self.logger = get_logger(config, main_rank=self.main_rank)
         if is_distributed():
@@ -228,6 +241,15 @@ class SegTrainer:
                                            teacher=self.teacher)
         self.eval_step = build_eval_step(config, self.state.ema_model,
                                          self.device, norm_coeffs)
+        self._exe_cache = None
+        if config.compile_cache:
+            # each step's first call acquires the kernel libraries it
+            # launches through the process's cache (warm/prime.py)
+            self._exe_cache = active_cache()
+            self.train_step = warm_step(self.train_step, self._exe_cache,
+                                        'train_step')
+            self.eval_step = warm_step(self.eval_step, self._exe_cache,
+                                       'eval_step')
         # checkpoint writes run off the epoch loop (save_ckpt); joined
         # before every read and at the end of run()
         self._ckpt_writer = AsyncCkptWriter()
@@ -398,7 +420,6 @@ class SegTrainer:
 
     def run(self) -> float:
         cfg = self.config
-        refuse_unported(cfg, _NOT_PORTED)
         if self.main_rank:
             save_config(cfg)
             log_config(cfg, self.logger)

@@ -206,7 +206,7 @@ def test_from_artifact_batch_rules_and_refusals(jax_side):
     ref = ServeEngine.from_config(_port_cfg(), [(32, 48)], 3,
                                   ckpt_path=ckpt, device='cpu')
     assert np.array_equal(sym.run((32, 48), x), ref.run((32, 48), x))
-    # a device the artifact was not exported for, the TPU, exe_cache
+    # a device the artifact was not exported for, the TPU; exe_cache
     cuda_only = export.save_exported(
         export.export_module(_Sign(), 32, 48, platforms=('cuda',)),
         str(tmp / 'cuda_only'))
@@ -218,8 +218,15 @@ def test_from_artifact_batch_rules_and_refusals(jax_side):
                                 platforms=platforms)
     with pytest.raises(ValueError, match='no platforms'):
         export.export_model(_port_cfg(), imgh=32, imgw=48, platforms=())
-    with pytest.raises(NotImplementedError, match='"The planes"'):
-        ServeEngine.from_artifact(static, device='cpu', exe_cache=object())
+    # exe_cache is taken; the graphs launch no library of the port, so
+    # nothing is acquired through it
+    from rtseg_tpu_torch.warm import ExeCache
+    cache = ExeCache(str(tmp / 'exe'))
+    cached = ServeEngine.from_artifact(static, device='cpu', exe_cache=cache)
+    assert cached.stats()['cache_hits'] == 0
+    assert cache.stats()['hits'] + cache.stats()['misses'] == 0
+    assert np.array_equal(cached.run((32, 48), x[:2]),
+                          eng.run((32, 48), x[:2]))
 
 
 def test_the_card_is_the_default(monkeypatch, jax_side):

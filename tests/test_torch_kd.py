@@ -269,7 +269,6 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     import io
     from PIL import Image
     from rtseg_tpu_torch.data import get_loader
-    from rtseg_tpu_torch.train import trainer as tr
     from rtseg_tpu_torch.train.checkpoint import restore_weights
     from rtseg_tpu_torch.data.custom import Custom
     from torch_data_trees import custom_tree
@@ -320,15 +319,8 @@ def test_refusals_name_roadmap_items_by_titles_it_has(tmp_path):
     # the serving slice's refusals; a JPEG body cut short raises as PIL
     with pytest.raises(ValueError, match='truncated'):
         make_preprocess(SegConfig())(b'\xff\xd8\xff')
-    messages.append(
-        _message(lambda: ServeEngine.from_artifact('model.pt2',
-                                                   exe_cache=object())))
-    for flag, _, _, _ in tr._NOT_PORTED:
-        t = SegTrainer.__new__(SegTrainer)
-        t.config = SegConfig(**{'use_tb': False, 'use_obs': False,
-                                flag: True if flag in ('use_tb', 'use_obs')
-                                else 'x'})
-        messages.append(_message(t.run))
+    messages.append(_message(lambda: ServeEngine(
+        lambda x: x, [(8, 8)], 1, device='cpu', compile_workers=2)))
     roadmap = (ROOT / 'ROADMAP.md').read_text()
     queue1 = roadmap[roadmap.index('### Queue 1'):
                      roadmap.index('### Queue 2')]

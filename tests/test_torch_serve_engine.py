@@ -136,18 +136,18 @@ def test_dispatch_returns_a_handle_read_once(engine):
 
 
 def test_engine_refusals(jax_side):
-    """The executable cache and the compile cache raise, naming "The
-    planes"; export and from_artifact are ported
+    """Parallel bucket builds (compile_workers above 0) raise, naming "The
+    planes"; the executable cache and its pins are taken and checked
+    (tests/test_torch_warm.py); export and from_artifact are ported
     (tests/test_torch_export.py), and the export refuses the TPU."""
     cfg = SegConfig(**_kw())
     with pytest.raises(NotImplementedError, match='"The planes"'):
-        ServeEngine.from_artifact('model.pt2', batch=2, exe_cache=object())
-    with pytest.raises(NotImplementedError, match='"The planes"'):
         ServeEngine(lambda x: x, BUCKETS, BATCH, device='cpu',
-                    exe_cache=object())
-    with pytest.raises(NotImplementedError, match='"The planes"'):
-        ServeEngine.from_config(SegConfig(compile_cache=True, **_kw()),
-                                BUCKETS, BATCH, device='cpu')
+                    compile_workers=4)
+    with pytest.raises(ValueError, match='unknown'):
+        ServeEngine(lambda x: x, BUCKETS, BATCH, device='cpu',
+                    pins={'bn_axis': None, 's2d_stem': False,
+                          'defer_upsample': False, 'remat': True})
     with pytest.raises(ValueError, match='the port has no TPU target'):
         export.export_model(cfg, platforms=('cpu', 'tpu'))
     with pytest.raises(ValueError, match='at least one bucket'):

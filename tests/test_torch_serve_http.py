@@ -316,5 +316,11 @@ def test_cli_bench_check_passes_on_the_cpu(tmp_path):
     proc = _cli('--requests', '4', '--rps', '40', '--check',
                 '--p95-ms', '0.000001')
     assert proc.returncode == 1 and 'check FAILED' in proc.stderr
-    proc = _cli('--requests', '4', '--compile-cache', 'dir')
+    proc = _cli('--requests', '4', '--bundle', 'dir')
     assert proc.returncode != 0 and '"The planes"' in proc.stderr
+    # --compile-cache is taken: the run passes with the cache under it
+    cache = tmp_path / 'cache'
+    proc = _cli('--requests', '4', '--rps', '40', '--check',
+                '--p95-ms', '30000', '--compile-cache', str(cache))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert (cache / 'exe').is_dir()

@@ -279,9 +279,18 @@ def test_train_step_refuses_what_it_does_not_implement(tmp_path):
 
 @pytest.mark.parametrize('flag,value', [('compile_cache', True)])
 def test_run_refuses_the_planes_not_ported(tmp_path, flag, value):
-    trainer = SegTrainer(_config(tmp_path, **{flag: value}), device='cpu')
-    with pytest.raises(NotImplementedError, match=flag):
-        trainer.run()
+    """compile_cache, refused until the warm starts were ported, now
+    builds the trainer with its cache (tests/test_torch_warm_trainer.py
+    runs it); the process's compile cache is turned off again."""
+    from rtseg_tpu_torch.warm import ExeCache, compile_cache
+    try:
+        trainer = SegTrainer(_config(tmp_path, **{flag: value}),
+                             device='cpu')
+        assert isinstance(trainer._exe_cache, ExeCache)
+        assert compile_cache.active_cache() is trainer._exe_cache
+        assert trainer.eval_step.exe_cache is trainer._exe_cache
+    finally:
+        compile_cache.disable_compile_cache()
 
 
 # ------------------------------------------------------------------ run()

@@ -39,9 +39,15 @@ only). --obs-dir writes the request, batch and ingress events.
 errors, 0 retraces, one CUDA graph (one eager bucket on the CPU) a
 configured bucket, and e2e p95 under --p95-ms.
 
---bundle, --compile-cache and --stream are the JAX tool's and raise here:
-registry bundles, the compile cache and video sessions are not ported
-(ROADMAP.md Queue 1, "The planes").
+--compile-cache DIR turns the process's compile cache on under DIR
+(rtseg_tpu_torch/warm/): the libraries the server builds (the host
+library that decodes request bodies) are loaded from it on the next
+start, and the engine gets that cache (its CUDA graphs are still
+captured at every start).
+
+--bundle and --stream are the JAX tool's and raise here: registry
+bundles and video sessions are not ported (ROADMAP.md Queue 1, "The
+planes").
 
 Exit codes: 0 ok, 1 --check failed, 2 usage error.
 """
@@ -98,12 +104,15 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--artifact', default=None,
                    help='torch.export artifact (tools/torch_export.py) to '
                         'serve; the bucket comes from its input shape')
-    for flag in ('--bundle', '--compile-cache'):
-        p.add_argument(flag, default=None, help='not ported (The planes)')
+    p.add_argument('--compile-cache', default=None, metavar='DIR',
+                   help='compile cache dir: the libraries this process '
+                        'builds are stored there and loaded on the next '
+                        'start')
+    p.add_argument('--bundle', default=None, help='not ported (The planes)')
 
 
 def _refuse_planes(args) -> None:
-    for flag in ('bundle', 'compile_cache', 'stream'):
+    for flag in ('bundle', 'stream'):
         if getattr(args, flag, None):
             raise not_ported(f'--{flag.replace("_", "-")}', 'The planes')
 
@@ -114,17 +123,23 @@ def _build_config(args) -> SegConfig:
                     compute_dtype=args.compute_dtype,
                     save_dir=os.path.join(tempfile.gettempdir(),
                                           'torch_segserve'),
+                    compile_cache=bool(args.compile_cache),
+                    compile_cache_dir=args.compile_cache,
                     use_tb=False)
     cfg.resolve(num_devices=1)
+    if cfg.compile_cache:
+        from rtseg_tpu_torch.warm import enable_compile_cache
+        enable_compile_cache(cfg)
     return cfg
 
 
 def _build_engine(args, cfg: SegConfig, buckets=None,
                   batch=None) -> ServeEngine:
     if args.artifact:
+        from rtseg_tpu_torch.warm.compile_cache import active_cache
         return ServeEngine.from_artifact(
             args.artifact, batch=args.batch if batch is None else batch,
-            device=args.device)
+            device=args.device, exe_cache=active_cache())
     return ServeEngine.from_config(
         cfg, buckets or parse_buckets(args.buckets),
         args.batch if batch is None else batch, ckpt_path=args.ckpt,
